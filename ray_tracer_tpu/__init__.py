@@ -1,4 +1,4 @@
-"""ray_tracer_tpu: a TPU-native (JAX/XLA/Pallas) Monte-Carlo path tracer.
+"""ray_tracer_tpu: a JAX (XLA + Pallas) Monte-Carlo path tracer.
 
 Ground-up rebuild of the capabilities of CobaltCrabby/ray_tracer (a Vulkan
 compute megakernel path tracer) as a wavefront pipeline of batched kernels.

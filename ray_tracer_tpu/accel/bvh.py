@@ -11,14 +11,14 @@ in-place triangle partition.  Differences (deliberate, perf/correctness only
   of ``rightArea`` with wrong values (``vk_engine.cpp:1313-1323``); we compute
   the correct suffix areas.  BVH shape only affects speed, not images.
 * When SAH declines to split a node larger than ``max_leaf_tris``, we fall
-  back to a median split so leaves stay small enough for the TPU traversal
-  kernel to unroll (the reference lets leaves grow unboundedly).
+  back to a median split so leaves stay small enough for the traversal
+  loops to unroll (the reference lets leaves grow unboundedly).
 * We additionally store the split axis per interior node and build eight
   *octant-threaded* link tables (hit/miss "ropes"), one per ray-direction
   sign combination, so device traversal is stackless: each ray carries a
   single node pointer instead of the reference's 64-deep local stack
-  (``shaders/raytrace.comp:302-305``) — per-thread stacks are hostile to the
-  TPU's vector units.
+  (``shaders/raytrace.comp:302-305``), so a ray's whole walk state is one
+  integer plus its best hit.
 """
 
 from __future__ import annotations

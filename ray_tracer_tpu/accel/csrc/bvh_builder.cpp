@@ -285,9 +285,8 @@ void thread_links(const std::vector<int32_t> &index,
 // clipped reference to each side.  Leaves then address ranges of a REFERENCE
 // array (perm maps refs -> original triangle ids, with duplicates); the
 // downstream pipeline already copies triangle records per leaf row, so
-// duplication costs only the extra rows.  Node overlap is the quantity that
-// drives the TPU packet kernel's per-packet node union (BENCH_NOTES round
-// 2), which is why this builder exists.  No reference unsplitting (v1).
+// duplication costs only the extra rows.  Less node overlap means fewer
+// node visits per ray walk.  No reference unsplitting (v1).
 // ---------------------------------------------------------------------------
 
 struct Ref {

@@ -1,7 +1,8 @@
 """ctypes bridge to the native C++ BVH builder.
 
-Compiles ``csrc/bvh_builder.cpp`` on first use (g++ -O3 -shared) into the
-user cache dir, keyed by source hash.  Falls back silently to the numpy
+Compiles ``csrc/bvh_builder.cpp`` on first use (g++ -O3 -shared) into
+``build/native/`` of the checkout (``RT_CACHE`` overrides), keyed by
+source hash.  Falls back silently to the numpy
 builder when no toolchain is available (``available()`` returns False).
 Semantics match accel/bvh.py; the in-leaf triangle *order* may differ (the
 C++ uses the reference's unstable two-pointer partition,
@@ -24,7 +25,9 @@ _tried = False
 
 
 def _cache_dir() -> str:
-    d = os.environ.get("RT_CACHE", os.path.expanduser("~/.cache/ray_tracer_tpu"))
+    from ..utils.cache import NATIVE_DIR
+
+    d = os.environ.get("RT_CACHE", NATIVE_DIR)
     os.makedirs(d, exist_ok=True)
     return d
 

@@ -19,6 +19,7 @@ large renders bound their live wavefront memory.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -29,7 +30,6 @@ import jax.numpy as jnp
 from .config import RenderConfig
 from .integrator import film, wavefront
 from .scene.types import Camera, CompiledScene
-from .utils.jitting import tpu_jit
 from .utils.transforms import camera_rotation
 
 
@@ -85,7 +85,7 @@ def _tile_mean(
     return acc / n_samples
 
 
-_render_tile = tpu_jit(static_argnames=("cfg", "n_samples"))(_tile_mean)
+_render_tile = jax.jit(_tile_mean, static_argnames=("cfg", "n_samples"))
 
 
 def render_frame(
@@ -103,11 +103,10 @@ def render_frame(
     n_pix = cfg.n_pixels
     tile = max(1, min(n_pix, cfg.max_rays_per_batch))
     n_tiles = -(-n_pix // tile)
-    # One dispatch per (tile, spp-chunk), NOT one whole-frame program: a
-    # single XLA execution beyond the TPU runtime's ~60-90s watchdog kills
-    # the worker (BENCH_NOTES round 2), and a hard scene at high spp is
-    # minutes of device time.  The ~3.5ms dispatch floor only matters for
-    # interactive-small renders, which are a single chunk anyway.
+    # One dispatch per (tile, spp-chunk), NOT one whole-frame program: the
+    # tile bounds the live wavefront memory and the chunk bounds one
+    # program's run time (a hard scene at high spp is minutes of device
+    # time).
     chunk = max(1, min(spp, cfg.max_spp_per_dispatch))
     outs = []
     for t in range(n_tiles):
@@ -228,7 +227,7 @@ def render_debug(
     cam = camera or scene_camera(scene)
     rot, pos, fov, aspect, near = _camera_arrays(cam, cfg)
 
-    @tpu_jit(static_argnames=("cfg",))
+    @functools.partial(jax.jit, static_argnames=("cfg",))
     def run(scene, rot, pos, fov, aspect, near, ids, cfg):
         rays = wavefront.raygen(
             rot, pos, fov, aspect, near, ids, cfg.width, cfg.height

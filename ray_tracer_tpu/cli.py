@@ -92,6 +92,9 @@ def main(argv=None) -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     from . import ProgressiveRenderer, RenderConfig, render_frame
     from .integrator import film
 

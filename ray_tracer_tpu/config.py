@@ -15,205 +15,68 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 
+ROUTES = ("auto", "walk", "kernel", "interpret")
+
+
 @dataclass(frozen=True)
 class Routing:
-    """Traversal-kernel routing — hermetic, hashable, a static jit key.
+    """Traversal routing -- hermetic, hashable, a static jit key.
 
-    Promoted from ambient ``RT_*`` env vars (round-2 VERDICT): environment
-    variables are consulted only by :meth:`from_env` (the default when a
-    ``RenderConfig`` carries ``routing=None``), so passing an explicit
-    ``Routing`` makes trace-time behavior independent of process state.
-    The knobs map to the reference's single push-constant config discipline
-    (``src/vk_engine.h:160-171``) extended with TPU placement choices.
+    Environment variables are consulted only by :meth:`from_env` (the
+    default when a ``RenderConfig`` carries ``routing=None``), so passing
+    an explicit ``Routing`` makes trace-time behavior independent of
+    process state.
     """
 
-    # "auto": packet kernel on TPU backends, gather walk elsewhere;
-    # "off": XLA gather walk (the CPU correctness oracle);
-    # "force": packet kernel regardless of backend;
-    # "interpret": packet kernel in Pallas interpret mode (CPU debugging).
-    packet: str = "auto"
-    # BVH8 wide kernel (True, production) vs binary packet kernel (False,
-    # escape hatch — measured slower on every scene, BENCH_NOTES round 2).
-    wide: bool = True
-    # Rays per packet; 0 = kernel default (2048, measured best on v5e).
-    packet_size: int = 0
-    # VMEM bytes for resident node/tri tables before spilling to per-visit
-    # HBM DMA ('hbm': leaf rows; 'hbm2': nodes too).
-    vmem_budget: int = 48_000_000
+    # Triangle traversal on flattened scenes:
+    #   "auto"      the Pallas walk kernel (kernels/walk_gpu.py) on a GPU,
+    #               the XLA gather walk everywhere else;
+    #   "walk"      the XLA gather walk (ops/traverse._walk), the oracle;
+    #   "kernel"    the walk kernel compiled for the GPU;
+    #   "interpret" the walk kernel in the Pallas interpreter (CPU tests).
+    # Forest (non-flattened) scenes always take the gather walk.
+    route: str = "auto"
     # Coherence-binning key widths (integrator): morton bits per origin
     # axis, and extra |direction| bits inside the octant.
-    # 6 measured +2% over 5 on the official bench at the group route's
-    # 256-lane coherence unit (r4; 5 vs 6 was noise-level at the packet
-    # route's 2048-lane unit).
     bin_bits: int = 6
     bin_dir_bits: int = 0
-    # Bounce-round coherence key flavor (round 5, VERDICT item 8):
-    #   "morton"  (octant, bin_bits-morton of origin) — the r2-r4 key.
-    #   "leaf"    (octant, previous-hit primitive id) — geometry-ADAPTIVE
-    #             origin locality: prim ids follow the SBVH builder's DFS
-    #             order (an adaptive space-filling curve over the
-    #             geometry), so same-key rays start from the same leaf
-    #             surface patch regardless of scene scale, where a 6-bit
-    #             morton cell can span thousands of leaves.  Regenerated
-    #             camera rays key by pixel id (scanline-coherent), dead
-    #             lanes to the end.
-    #   "hier"    (octant, morton) PRIMARY + prev-hit prim id SUB-ORDER:
-    #             packets stay subtree-local (the leaf key's -8% failure
-    #             mode) while each 256-lane kernel group covers fewer
-    #             leaves.  Two stable argsorts; sort is ~0.4% of frame.
-    #             Images bit-identical in every mode (binning is a pure
-    #             permutation).
+    # Bounce-round coherence key flavor (binned wavefront only):
+    #   "morton"  (octant, bin_bits-morton of origin);
+    #   "leaf"    (octant, previous-hit primitive id): prim ids follow the
+    #             SBVH builder's DFS order, an adaptive space-filling curve
+    #             over the geometry; regenerated camera rays key by pixel
+    #             id, dead lanes to the end;
+    #   "hier"    (octant, morton) primary + prev-hit prim id sub-order
+    #             (two stable argsorts).
+    # Images are bit-identical in every mode (binning is a permutation).
     bin_mode: str = "morton"
-    # Two-phase treelet traversal (round 3): a TOP packet walk emits
-    # per-lane treelet entries, pairs are sorted by entry and traversed by
-    # treelet-local DEEP packets (nearest entry first, remaining entries
-    # bounded by its best).  MEASURED NEGATIVE on the v5e (BENCH_NOTES r3:
-    # 0.33 vs 1.52 Mrays/s on binned bounce rays): a deep packet descends
-    # every node ANY lane wants, so its union approaches the whole
-    # treelet, and the 2.5x pair-lane volume + sort glue swamp the
-    # smaller per-packet footprint.  Kept as a tested escape hatch /
-    # measurement harness; default stays single-phase.
-    two_phase: bool = False
-    # per-lane entry slots in the top phase (overflowing lanes re-traverse
-    # from the root via an entry-0 pair)
-    top_k: int = 5
-    # Stack entries popped (and visited back-to-back) per wide-kernel loop
-    # iteration.  The visit loop is latency-bound (cross-lane any-hit
-    # reductions + the scalar pop/push chain), so >1 lets independent
-    # visits' vector work overlap; traversal order changes slightly
-    # (pruning efficiency only, never correctness).  1 = the classic walk.
-    multi_pop: int = 1
-    # Wide-kernel child-mask scheme ('mxu'|'sum2'|'sum4'|'rollor'|
-    # 'fusedK').  The mask's cross-lane reductions are the dominant
-    # interior-visit cost (~590ns of ~770ns under sum4, BENCH_NOTES r3
-    # ablation); 'sum2' pre-folds sublanes and packs 4 children x 8-bit
-    # count fields per word so only TWO lane reductions are issued;
-    # 'mxu' resolves the per-child lane counts with one int-iota matvec
-    # and won the 16-cell hardware sweep (3.08 vs 3.05 Mrays/s, r4) —
-    # the default.  'rollor' (roll+OR fold) and 'fused2'/'fused4' (one
-    # block-diagonal contraction for K popped nodes) both measured
-    # SLOWER (BENCH_NOTES r3/r4) — kept as equivalence-tested variants.
-    mask_mode: str = "mxu"
-    # MXU cluster pipeline (round 3): candidate-cluster enumeration over
-    # the tiny cluster-BVH8, (ray,cluster) pair grouping, and matmul-dense
-    # triangle tests (ops/cluster_trace.py).  'on' routes triangle
-    # traversal through it, 'off' never.  'auto' = off, MEASURED (r4
-    # campaign): end-to-end 0.27 vs 1.81 Mrays/s for the single-phase
-    # packet walk on identical binned bounce rays — a 6.7x loss (enum
-    # walk 83 ns/ray + pair glue dominate; BENCH_NOTES r4 post-mortem).
-    cluster: str = "auto"
-    # Per-lane cluster emit slots; lanes with more candidates fall back to
-    # the classic packet walk (overflow ~2% at 16 on the hardened proxy,
-    # tools/sim_cluster.py).
-    cluster_k: int = 16
-    # Candidate enumeration flavor.  MEASURED on the v5e (r4 campaign,
-    # BENCH_NOTES): 'packet' (emit-mode walk over the tiny cluster BVH8)
-    # enumerates binned bounce rays at 83 ns/ray; 'boxes' (two
-    # brute-force slab-matmul levels) measured 25x SLOWER (2.1 us/ray)
-    # despite the favorable CPU sim — the hardware killed it the way it
-    # killed two-phase treelets.  'boxes' stays as a tested variant;
-    # 'packet' is also the capacity fallback for scenes beyond the
-    # 128-super x 128-cluster two-level limit.
-    cluster_enum: str = "packet"
-    # Multi-stack lane-group kernel (kernels/group.py): the packet splits
-    # into `groups` independent per-group pair stacks walked in lockstep,
-    # cutting the per-packet visit count ~3.5x on binned bounce rays at
-    # the price of a G-wide scalar pop/push tail per step.  Hardware A/B
-    # (tools/measure_group.py, hardened proxy): closest-hit bounce x2.0,
-    # primaries x1.25 at groups=16/groups_packet=4096; anyhit is neutral
-    # (early-exit already collapses the packet union), so shadow rays
-    # stay on the packet kernel.  0 = off (classic packet walk);
-    # requires fully VMEM-resident tables and <=8-record leaf slots.
-    # DEFAULT ON (round-4 scene sweep: proxy +32%, klein +13%, bunny and
-    # cornell neutral within noise) — ops/traverse._group_on degrades to
-    # the packet walk wherever the prerequisites fail.
-    groups: int = 16
-    # Packet size for the group route (the scalar tail amortizes over
-    # more lanes than the packet walk's knee: 4096 beats 2048 here).
-    groups_packet: int = 4096
-    # Route NEE/shadow occlusion queries through the group kernel too
-    # (round 5, VERDICT item 2).  r4 measured group-anyhit neutral vs
-    # the packet walk; re-opened after the order-free anyhit
-    # specialization, it now wins: 37.2 vs 34.3 Mrays/s standalone on
-    # binned production shadow rays (tools/measure_anyhit.py) and
-    # official bench 4.79 -> 5.17 Mrays/s (+8%), identical checksum.
-    # DEFAULT ON; packet remains the fallback wherever _group_on's
-    # prerequisites fail (RT_ANYHIT_GROUP=0 restores it).
-    anyhit_group: bool = True
-    # Group count for the OCCLUSION group kernel (0 = inherit ``groups``).
-    # Occlusion economics differ from closest-hit (early exit kills lanes
-    # fast, no best tracking): the r5 shape sweep
-    # (tools/sweep_anyhit_shape.py, binned production shadow rays)
-    # measured g8 37.7 vs g16 36.2 Mrays/s at packet 4096 — fewer groups
-    # = shorter scalar tail per step, and the occlusion walk's early exit
-    # keeps the wider 512-lane group unions cheap.
-    anyhit_groups: int = 0
-    # Pre-permute NEE (anyhit modes, round 5): the shadow query + MIS
-    # ``direct`` resolve run BEFORE the round's coherence permute, so the
-    # 12 NEE columns (nee_origin, l_dir, nee_k, cos_pdf, l_dist,
-    # nee_active, li, ...) stop riding the main state permute — the
-    # packed row-gather shrinks from (N,36)f32+(N,6)i32 to
-    # (N,20)f32+(N,5)i32.  Modes:
-    #   "off"    round-4 behavior: NEE columns ride the main permute and
-    #            the shadow query runs post-permute on the bounce key.
-    #   "sort"   shadow rays get their OWN (active-first, shadow-octant,
-    #            origin cell) argsort before the anyhit query.  Measured
-    #            -16% on the official bench (4.0 vs 4.79, r5): the extra
-    #            argsort + inverse scatter costs more than the slim
-    #            permute saves.
-    #   "nosort" shadow query runs pre-permute in main-wave order (the
-    #            lanes still carry the PREVIOUS round's bounce-key
-    #            coherence); only the slim main permute is kept.
+    # Shadow-query placement relative to the round's binning permute
+    # (anyhit NEE, binned wavefront only):
+    #   "off"    NEE columns ride the main permute; the shadow query runs
+    #            after it, in the bounce key's order;
+    #   "sort"   shadow rays get their own (active-first, shadow-octant,
+    #            origin cell) argsort before the query;
+    #   "nosort" the shadow query runs before the permute, in main-wave
+    #            order; only a slim state permute remains.
     # Images are bit-identical across modes (per-lane results are
     # permutation-invariant; every resolve op is elementwise).
     nee_prebin: str = "off"
-    # Packet size for the 'packet' enumeration walk.  The enum tree is
-    # tiny (a few hundred wide nodes), so a packet's node union is capped
-    # by the tree itself and bigger packets amortize each visit over more
-    # lanes almost for free — unlike the fine-tree walk where 2048 is the
-    # measured knee.
-    cluster_enum_packet: int = 8192
-    # Per-lane rope-walk kernel (kernels/lanewalk.py, round 5): every
-    # lane walks its OWN octant-threaded rope through per-octant preorder
-    # row streams, with 8 independent page-cursor gangs per 1024-lane
-    # block and Mosaic dynamic gathers fetching each lane's 16-float row.
-    # 'off' | 'force' | 'interpret' (CPU testing) | 'auto' (use on TPU
-    # backends when streams are built).  Replaces BOTH the closest-hit
-    # and anyhit traversal when on.
-    lanewalk: str = "off"
+
+    def __post_init__(self):
+        if self.route not in ROUTES:
+            raise ValueError(
+                f"Routing.route must be one of {ROUTES}, got {self.route!r}"
+            )
 
     @staticmethod
     def from_env() -> "Routing":
-        """Default routing with env overrides (the tools/CLI escape hatch)."""
+        """Default routing with ``RT_*`` env overrides (tools/CLI)."""
         return Routing(
-            packet={"0": "off", "1": "force"}.get(
-                os.environ.get("RT_PACKET", "auto"),
-                os.environ.get("RT_PACKET", "auto"),
-            ),
-            wide=os.environ.get("RT_WIDE", "1") != "0",
-            packet_size=int(os.environ.get("RT_PACKET_SIZE", 0)),
-            vmem_budget=int(
-                os.environ.get("RT_PACKET_VMEM_BUDGET", 48_000_000)
-            ),
+            route=os.environ.get("RT_ROUTE", "auto"),
             bin_bits=int(os.environ.get("RT_BIN_BITS", 6)),
             bin_dir_bits=int(os.environ.get("RT_BIN_DIR_BITS", 0)),
             bin_mode=os.environ.get("RT_BIN_MODE", "morton"),
-            two_phase=os.environ.get("RT_TWO_PHASE", "0") != "0",
-            top_k=int(os.environ.get("RT_TOP_K", 5)),
-            multi_pop=int(os.environ.get("RT_MULTI_POP", 1)),
-            mask_mode=os.environ.get("RT_MASK_MODE", "mxu"),
-            cluster=os.environ.get("RT_CLUSTER", "auto"),
-            cluster_k=int(os.environ.get("RT_CLUSTER_K", 16)),
-            cluster_enum=os.environ.get("RT_CLUSTER_ENUM", "packet"),
-            groups=int(os.environ.get("RT_GROUPS", 16)),
-            groups_packet=int(os.environ.get("RT_GROUPS_PACKET", 4096)),
-            anyhit_group=os.environ.get("RT_ANYHIT_GROUP", "1") == "1",
-            anyhit_groups=int(os.environ.get("RT_ANYHIT_GROUPS", 0)),
             nee_prebin=os.environ.get("RT_NEE_PREBIN", "off"),
-            lanewalk=os.environ.get("RT_LANEWALK", "off"),
-            cluster_enum_packet=int(
-                os.environ.get("RT_CLUSTER_ENUM_PACKET", 8192)
-            ),
         )
 
     def replace(self, **kw) -> "Routing":
@@ -255,68 +118,55 @@ class RenderConfig:
     # gradient of a [0,1] height map across one texel, so the look is
     # resolution-stable).
     bump_scale: float = 1.0
-    # Pixels per traversal batch; render() tiles the image into chunks of
-    # this many pixels x samples to bound live-state memory.  The fused
-    # bounce step launches 2N-ray traversals (bounce ++ NEE), and XLA stages
-    # pallas operands in scoped VMEM — 2*(1<<17) lanes is the safe ceiling
-    # measured on v5e.
+    # Pixels per dispatch: render() tiles the image into chunks of this
+    # many pixels, each traced as one program, to bound the live wavefront
+    # state (tens of float32 columns per lane) in device memory.
     max_rays_per_batch: int = 1 << 17
-    # Samples per XLA dispatch within a tile.  A single execution past the
-    # TPU runtime's ~60-90s watchdog kills the worker (BENCH_NOTES round
-    # 2), so big-spp renders are split into per-chunk dispatches; results
-    # are identical (counter-based RNG + exact chunk-weighted mean).
+    # Samples per dispatch within a tile: big-spp renders are split into
+    # per-chunk dispatches so one program's run time stays bounded;
+    # results are identical (counter-based RNG + exact chunk-weighted
+    # mean).
     max_spp_per_dispatch: int = 32
     # Lane-pool ceiling for the spp-lane population mode (wavefront
     # trace_wave): each pixel's samples are split across up to
-    # lane_pool // n_pixels lanes so coherence binning draws from a
-    # g-times larger population.  Measured on the official bench
-    # (tools/measure_pop.py round 4): +12% at spp2 (3.06 -> 3.44 Mrays/s,
-    # 4.15M lanes) and +16% at spp4 (3.16 -> 3.68, 8.3M lanes, still no
-    # memory pressure on the 16G v5e).  0 = auto (1 << 23); set to 1 to
-    # disable expansion (lanes = pixels, the round-3 schedule).
+    # lane_pool // n_pixels lanes, so one wavefront holds more
+    # independent paths.  0 = auto (1 << 23); 1 disables expansion
+    # (lanes = pixels).
     lane_pool: int = 0
-    # Multi-phase drain divisor (wavefront trace_wave): the live wavefront
+    # Multi-phase drain divisor (binned trace_wave): the live wavefront
     # array shrinks by this factor whenever the alive count falls below
     # the next width, bounding within-phase occupancy waste.  0 = auto
-    # (4, the measured default); 2 halves the waste bound at the cost of
-    # more bank/slice steps.
+    # (4); 2 halves the waste bound at the cost of more bank/slice steps.
     drain_div: int = 0
-    # Compact bounce/NEE rays alive-first before traversal so dead lanes
-    # cluster into trailing packets that exit at the BVH root (~1.3 us
-    # each, measured).  Implemented as a stable two-bucket partition (one
-    # cumsum + one scatter + gathers).  Measured on a real v5e the
-    # XLA-level permute still LOSES (klein 2.23 -> 1.55 Mrays/s; a full
-    # argsort loses 5x) — the scatter/gathers cost more than the saved
-    # traversal — so None (auto) currently means OFF; the flag remains
-    # for experiments.  Per-lane results are identical either way.
+    # Compact bounce/NEE rays alive-first before traversal (static-scan
+    # integrator, closest-hit NEE only): a stable two-bucket partition
+    # (one cumsum + one scatter + gathers).  None (auto) = off; per-lane
+    # results are identical either way.
     sort_bounce_rays: "bool | None" = None
     # NEE shadow rays as true ANY-HIT occlusion queries (lanes stop at
     # their first hit) with the light pdf computed analytically at the
     # sampled distance — the value the reference's closest-hit raycast
-    # returns when unoccluded (raytrace.comp:396-402).  ~2x cheaper shadow
-    # traversal.  Deviation: an emissive surface strictly between the
-    # shading point and the light occludes instead of contributing its own
-    # emission (impossible in scenes whose only emitters are the lights,
-    # i.e. all presets and reference scenes).  False restores the
-    # closest-hit resolve.
+    # returns when unoccluded (raytrace.comp:396-402).  Deviation: an
+    # emissive surface strictly between the shading point and the light
+    # occludes instead of contributing its own emission (impossible in
+    # scenes whose only emitters are the lights, i.e. all presets and
+    # reference scenes).  False restores the closest-hit resolve.
     nee_anyhit: bool = True
     # Path regeneration: render all samples of a tile in one while_loop
     # where a lane whose path terminates immediately starts its pixel's
     # next sample, instead of a static (bounce_limit+1) x spp scan whose
-    # occupancy decays with bounce depth (measured 26% on sponza_proxy).
+    # occupancy decays with bounce depth.
     # Radiometrically identical (same counter-based RNG streams).  False
     # restores the static scan (the reference-shaped schedule).
     path_regen: bool = True
     # Ray binning (path_regen only): each wavefront round sorts lanes by
-    # (direction octant, 5-bit-morton of origin) before traversal, so each
-    # traversal packet shares direction signs and an origin cell — the
-    # in-framework answer to bounce-ray incoherence (packet node-union
-    # blowup, BENCH_NOTES round 1 finding 5).  The whole per-lane state
-    # rides ONE packed (N,40) row-gather; per-lane results are exactly
-    # permutation-invariant (counter-based RNG keyed on pixel/sample/
-    # bounce), so images are bit-identical to bin_rays=False.  None (auto)
-    # = on when the scene runs the packet kernel (off on the CPU oracle
-    # path, where the gather walk has no packet-union cost).
+    # (direction octant, morton cell of origin) before traversal, so
+    # neighbouring lanes share direction signs and an origin cell, and
+    # dead lanes gather at the tail (which enables the multi-phase drain).
+    # The whole per-lane state rides one packed row-gather; per-lane
+    # results are permutation-invariant (counter-based RNG keyed on
+    # pixel/sample/bounce), so images are bit-identical to
+    # bin_rays=False.  None (auto) = off.
     bin_rays: "bool | None" = None
     # Capability extension: multiply specular/dielectric bounce radiance by
     # the material albedo (gold metal, colored glass).  The reference
@@ -332,8 +182,8 @@ class RenderConfig:
     # "uniform" = uniform hemisphere sampling, no NEE (cornell_uniform.png).
     # Non-default modes route through the static-scan integrator.
     estimator: str = "mis"
-    # Traversal-kernel routing.  None = resolve from RT_* env vars at trace
-    # time (interactive/tools default); an explicit Routing is hermetic.
+    # Traversal routing.  None = resolve from RT_* env vars at trace time
+    # (interactive/tools default); an explicit Routing is hermetic.
     routing: Optional[Routing] = None
 
     def resolved_routing(self) -> Routing:

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU-native re-architecture of the reference megakernel's ``trace`` loop
+Re-architecture of the reference megakernel's ``trace`` loop
 (``shaders/raytrace.comp:483-537``): instead of one divergent per-thread
 program, each bounce is a dense batched stage over the whole ray wavefront —
 traverse -> gather hit attributes -> evaluate all three BSDF lobes
@@ -70,31 +70,30 @@ def raygen(cam_rotation, cam_pos, fov, aspect, near, pixel_id, width, height,
     py = -plane_h / 2.0 + plane_h * v
     point = jnp.stack([px, py, jnp.full_like(px, 0.1)], axis=-1)
     d = point / jnp.linalg.norm(point, axis=-1, keepdims=True)
-    d = d @ cam_rotation.T
+    # full float32: a GPU may otherwise run this product in TF32, which
+    # moves primary rays by up to ~1e-3 relative
+    d = jnp.matmul(d, cam_rotation.T, precision=jax.lax.Precision.HIGHEST)
     origin = jnp.broadcast_to(cam_pos, d.shape)
     return CameraRays(origin, d)
 
 
 def _shade_fetch(scene: CompiledScene, rays: CameraRays, hit: traverse.Hit,
-                 space: str, cfg: "RenderConfig | None" = None):
+                 cfg: "RenderConfig | None" = None):
     """All deferred shading attributes from ONE fat-row gather.
 
     Returns ``(hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
-    sampler, metal_tex, alpha_tex, front)``.  Per-lane XLA gathers are the
-    dominant per-bounce fixed cost on TPU, so everything (vertex attrs AND
-    material/instance params) comes from one precompiled 48-float row — see
-    ``CompiledScene.shade_tri`` / ``shade_slot``; ``space`` picks the table
-    matching the id space the traversal reported
-    (:func:`ray_tracer_tpu.ops.traverse.prim_space`).
+    sampler, metal_tex, alpha_tex, front)``.  Everything (vertex attrs AND
+    material/instance params) comes from one precompiled 48-float row per
+    triangle (``CompiledScene.shade_tri``), one gather per lane instead of
+    one per table.
 
     Triangle barycentrics + facing are RE-DERIVED here from the row's
     geometry fields (v0/e1/e2/n at 32:44) instead of read from ``hit``:
-    the wide packet kernel tracks only (dst, prim) in its hot leaf loop
-    (``kernels/packet.py::_tri_t``), and re-evaluating Moller-Trumbore on
-    the same record values reproduces exactly what an in-kernel tracker
-    would have stored — without a second (N,16) leaf-record gather (XLA
-    gather cost is per op, not per row width).  Sphere lanes keep the
-    facing bit the sphere intersector reported in ``hit.front``.
+    the walk kernel tracks only (dst, prim), and re-evaluating
+    Moller-Trumbore on the same record values reproduces what an in-kernel
+    tracker would have stored, without a second (N,16) triangle-row
+    gather.  Sphere lanes keep the facing bit the sphere intersector
+    reported in ``hit.front``.
 
     Sphere normals per raytrace.comp:220 (small-table gathers, only when
     the scene has spheres); triangle normals are the barycentric
@@ -106,16 +105,15 @@ def _shade_fetch(scene: CompiledScene, rays: CameraRays, hit: traverse.Hit,
     hp = rays.origin + rays.direction * hit.dst[:, None]
     is_tri = hit.kind == traverse.KIND_TRI
     tri_i = jnp.where(is_tri, hit.prim, 0)
-    table = scene.shade_slot if space == "slot" else scene.shade_tri
-    srow = table[tri_i]  # (N,48): the ONE hot gather
+    srow = scene.shade_tri[tri_i]  # (N,48): the ONE hot gather
 
     if scene.meta.get("flattened", False):
-        # Moller-Trumbore re-evaluation (same formulas + zero-direction
-        # epsilon as kernels/packet.py::_tri_t / ops/traverse.py's walk).
-        # Valid only on the flattened path, where the row's geometry and
-        # the rays share world space; forest mode intersects in OBJECT
-        # space (traverse.py:489-492), so its walk-produced u/v/front are
-        # used as-is (packet kernels never run on forest scenes).
+        # Moller-Trumbore re-evaluation (the formulas of
+        # intersect.intersect_tris, plus a zero-direction epsilon).  Valid
+        # only on the flattened path, where the row's geometry and the
+        # rays share world space; forest mode intersects in OBJECT space,
+        # so its walk-produced u/v/front are used as-is (the walk kernel
+        # never runs on forest scenes).
         d_eps = jnp.where(rays.direction == 0.0, 1e-20, rays.direction)
         r3 = rays.origin - srow[:, 32:35]
         q3 = jnp.cross(r3, d_eps)
@@ -141,7 +139,8 @@ def _shade_fetch(scene: CompiledScene, rays: CameraRays, hit: traverse.Hit,
         n_world = n_obj
     else:
         m = scene.obj_transform[jnp.where(is_tri, hit.obj, 0)]
-        n_world = jnp.einsum("nij,nj->ni", m[:, :3, :3], n_obj)
+        n_world = jnp.einsum("nij,nj->ni", m[:, :3, :3], n_obj,
+                             precision=jax.lax.Precision.HIGHEST)
     normal = n_world / jnp.maximum(
         jnp.linalg.norm(n_world, axis=-1, keepdims=True), 1e-20
     )
@@ -366,7 +365,7 @@ def trace(
     """Path-trace one sample for a batch of rays -> (N,3) linear radiance.
 
     With ``with_stats`` also returns the number of traversals actually
-    performed (main + NEE shadow rays) — the Mrays/s numerator, the TPU
+    performed (main + NEE shadow rays) — the Mrays/s numerator, the
     analogue of the reference's ``stats[2]`` counters (raytrace.comp:276).
 
     With ``with_heatmap`` also returns per-lane ``(box_tests, tri_tests)``
@@ -397,14 +396,13 @@ def trace(
 
     # Primary traversal once; thereafter each bounce issues ONE combined
     # 2N-ray traversal (next bounce rays ++ NEE shadow rays) — half the
-    # kernel launches of the naive loop and better packet occupancy.  This
-    # is output-identical: the reference's 0/1-NEE accounting consumes the
-    # NEE result only at the NEXT bounce anyway (raytrace.comp:500-517).
-    # The split-launch (anyhit) path skips the slot->tri/obj mapping
-    # gathers (raw=True) and shades from the matching fat-row table.
+    # traversal launches of the naive loop.  This is output-identical: the
+    # reference's 0/1-NEE accounting consumes the NEE result only at the
+    # NEXT bounce anyway (raytrace.comp:500-517).  The split-launch
+    # (anyhit) path skips the tri->obj mapping gather (raw=True) and
+    # shades from the fat shading row.
     rt = cfg.resolved_routing()
     use_raw = bool(cfg.nee_anyhit) and not with_heatmap
-    space = traverse.prim_space(scene, rt) if use_raw else "tri"
     if with_heatmap:
         hit0, (box0, tri0) = traverse.traverse_with_stats(
             scene, rays.origin, rays.direction, jnp.ones((n,), bool)
@@ -436,8 +434,7 @@ def trace(
 
         (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
          sampler, metal_tex, alpha_tex, front) = _shade_fetch(
-            scene, CameraRays(carry.origin, carry.direction), hit, space,
-            cfg,
+            scene, CameraRays(carry.origin, carry.direction), hit, cfg,
         )
         albedo, emission, reflectance, cutout = _apply_material_maps(
             scene, cfg, uv, sampler, albedo, emission, reflectance,
@@ -546,8 +543,7 @@ def trace(
         alive = alive & (j < cfg.bounce_limit)
         # Shadow rays whose surface faces AWAY from the sampled light
         # point contribute exactly zero (nee_k clamps the cosine), so
-        # skip TRAVERSING them — output-identical (bit-identical frame
-        # checksum measured on the official bench); the backside-of-light
+        # skip TRAVERSING them — output-identical; the backside-of-light
         # case (negative pdf -> bad-sample zeroing, raytrace.comp:460)
         # still traces.  ``nee_sem`` keeps the full semantic set for the
         # ray counter: these rays ARE resolved (analytically, to zero) —
@@ -635,10 +631,7 @@ def trace(
             )
             do_sort = cfg.sort_bounce_rays
             if do_sort is None:
-                # auto = off: the XLA-level permute (cumsum+scatter+gathers)
-                # measured slower than the traversal it saves on a real v5e
-                # (klein 2.23 -> 1.55 Mrays/s).
-                do_sort = False
+                do_sort = False  # auto = off
             if with_heatmap:
                 # Counting walk; shadow-lane counts fold into their pixel
                 # (the reference threads one stats[2] through main and NEE
@@ -650,8 +643,7 @@ def trace(
                 tri_acc = carry.tri + st[:n] + st[n:]
             elif do_sort:
                 # Alive-first compaction: a stable two-bucket partition (one
-                # cumsum, no argsort — measured 5x cheaper).  Dead lanes
-                # cluster into trailing packets that exit at the BVH root;
+                # cumsum, no argsort).  Dead lanes cluster at the tail;
                 # per-lane results are order-independent, un-permuted after.
                 alive_i = a_both.astype(jnp.int32)
                 n_alive = jnp.sum(alive_i)
@@ -709,10 +701,9 @@ def trace(
 
         # Ray accounting rides a (2,) vector: [0] = SEMANTIC rays (every
         # ray the reference would traverse, raytrace.comp:443 — the
-        # round-over-round-comparable Mrays/s denominator), [1] = rays
-        # actually TRAVERSED (facing-away NEE lanes are resolved
-        # analytically and never launched; round-3 advisor asked for both
-        # counts so the analytic resolve can't inflate throughput).
+        # Mrays/s denominator), [1] = rays actually TRAVERSED (facing-away
+        # NEE lanes are resolved analytically and never launched; both are
+        # reported so the analytic resolve can't inflate throughput).
         n_alive = jnp.sum(alive.astype(jnp.float32))
         n_rays = carry.n_rays + jnp.stack(
             [
@@ -779,14 +770,13 @@ def _bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
     direction bits], origin morton cell).
 
     Rays sharing a key traverse near-identical BVH subtrees, so sorting by
-    it shrinks each packet's node union (the round-1 bounce bottleneck,
-    BENCH_NOTES finding 5).  Dead lanes key to the end so they cluster
-    into all-dead packets that exit at the root (~free).  Bounds come from
-    the flattened BVH root box; forest scenes degrade to octant-only.
+    it puts rays with similar walks in neighbouring lanes.  Dead lanes key
+    to the end.  Bounds come from the flattened BVH root box; forest
+    scenes degrade to octant-only.
 
     ``mb``: morton bits per origin axis (default 5 = 32^3 cells).
     ``db``: extra |direction| quantization bits per axis inside the octant
-    (default 0).  Both from Routing; swept in tools/measure_union.py.
+    (default 0).  Both from Routing.
     """
     oct_ = (
         (direction[:, 0] < 0).astype(jnp.int32)
@@ -820,12 +810,9 @@ def _lane_groups(n_lanes: int, n_spp: int, cfg: RenderConfig) -> int:
     """Sample-split factor g for the spp-lane population mode.
 
     Splits each pixel's ``n_spp`` samples across ``g`` lanes (each lane
-    regenerates ``n_spp // g`` samples) so the wavefront's binnable
-    population grows g-fold.  Coherence binning clusters better from a
-    larger pool (union sim, BENCH_NOTES r3), and the effect was still
-    unsaturated at one frame of PIXELS — measured +12% on the official
-    bench when the spp2 frame runs as 4.15M single-sample lanes instead
-    of 2.07M two-sample lanes (tools/measure_pop.py, round 4).
+    regenerates ``n_spp // g`` samples) so the wavefront's population
+    grows g-fold: more independent paths per launch, and a larger pool
+    for coherence binning.
 
     Prefers g = n_spp (the left-fold group sum then reproduces the
     sequential sample order); otherwise the largest divisor of n_spp
@@ -909,18 +896,16 @@ def _trace_wave_lanes(
 
     Radiometrically identical to summing :func:`render_sample` over the
     sample index (identical counter-based RNG streams and per-lane state
-    machine; per-lane traversal results are independent of packet
-    composition), but scheduled as ONE ``lax.while_loop`` in which a lane
+    machine; per-lane traversal results are independent of lane
+    order), but scheduled as ONE ``lax.while_loop`` in which a lane
     whose path terminates immediately begins its pixel's next sample.
 
     Why: with a static bounce scan the wavefront decays with bounce depth
-    — measured 26% lane occupancy on sponza_proxy @1080p (74% of every
-    launch + shading pass wasted on dead lanes).  Regeneration keeps lanes
+    (most lanes of late bounces are dead).  Regeneration keeps lanes
     ~full: the per-round cost is paid ~E[path length]*spp times instead of
-    (bounce_limit+1)*spp times.  This is the TPU answer to the ray
-    compaction the reference's planned-but-absent wavefront mode would
-    have used (README.md:13-16): no permutes (XLA scatter/gather measured
-    as a net loss on v5e), just per-lane rescheduling.
+    (bounce_limit+1)*spp times.  It replaces the ray compaction the
+    reference's planned-but-absent wavefront mode would have used
+    (README.md:13-16) with per-lane rescheduling, no permutes.
 
     Returns the per-pixel color SUM over samples (N,3) — divide by
     ``n_spp`` for the mean — plus the traversal-event count when
@@ -930,14 +915,7 @@ def _trace_wave_lanes(
     f3 = lambda v: jnp.full((n, 3), v, jnp.float32)
     rt = cfg.resolved_routing()
 
-    do_bin = cfg.bin_rays
-    if do_bin is None:
-        # auto: bin when the packet kernel runs.  Binning pays even on
-        # tiny scenes where the node-union argument is moot: the sort
-        # clusters DEAD lanes into whole packets and enables the
-        # multi-phase drain — measured 5x on cornell 512^2@1024spp
-        # (137 s binned vs 705 s unbinned, round 3).
-        do_bin = traverse._packet_mode(scene, rt) != "off"
+    do_bin = bool(cfg.bin_rays)  # auto (None) = off
 
     def primary_rays(pix, s):
         """Camera rays for per-lane (pixel, sample index) pairs (N,)."""
@@ -970,7 +948,6 @@ def _trace_wave_lanes(
         n_rays: jnp.ndarray
 
     use_raw = bool(cfg.nee_anyhit)
-    space = traverse.prim_space(scene, rt) if use_raw else "tri"
     s0 = jnp.zeros((n,), jnp.int32)
     sb0 = jnp.broadcast_to(jnp.asarray(sample_base, jnp.int32), (n,))
     pix0 = jnp.asarray(pixel_id, jnp.int32)
@@ -1008,7 +985,7 @@ def _trace_wave_lanes(
 
         (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
          sampler, metal_tex, alpha_tex, front) = _shade_fetch(
-            scene, CameraRays(w.origin, w.direction), hit, space, cfg
+            scene, CameraRays(w.origin, w.direction), hit, cfg
         )
         albedo, emission, reflectance, cutout = _apply_material_maps(
             scene, cfg, uv, sampler, albedo, emission, reflectance,
@@ -1151,15 +1128,14 @@ def _trace_wave_lanes(
         direct_base = jnp.where(path_ends[:, None], 0.0, w.direct)
         pix, slot, s_cur, j_cur, sb_cur = w.pix, w.slot, s_new, j_new, w.sb
 
-        # ---- pre-permute NEE (round 5, Routing.nee_prebin): the anyhit
-        # shadow query + MIS resolve run HERE, before the round's state
-        # permute — "sort" additionally bins the shadow rays by their OWN
-        # key (active-first, shadow-direction octant; measured -16% on
-        # the official bench, the argsort+scatter outweighs the slim
-        # pack), "nosort" keeps main-wave order (previous round's bounce
-        # coherence).  ``direct`` is then fully resolved and rides the
-        # main permute as 3 columns, dropping the 12 NEE columns from the
-        # packed row-gather.  Bit-identical: per-lane traversal results
+        # ---- pre-permute NEE (Routing.nee_prebin): the anyhit shadow
+        # query + MIS resolve run HERE, before the round's state permute —
+        # "sort" additionally bins the shadow rays by their OWN key
+        # (active-first, shadow-direction octant), "nosort" keeps
+        # main-wave order (previous round's bounce coherence).
+        # ``direct`` is then fully resolved and rides the main permute as
+        # 3 columns, dropping the 12 NEE columns from the packed
+        # row-gather.  Bit-identical: per-lane traversal results
         # are permutation-invariant and every op here is elementwise.
         prebin = bool(cfg.nee_anyhit) and rt.nee_prebin != "off"
         if prebin:
@@ -1203,23 +1179,21 @@ def _trace_wave_lanes(
 
         if do_bin:
             # ---- coherence binning: permute every live per-lane value so
-            # traversal packets share (octant, origin cell).  One packed
+            # neighbouring lanes share (octant, origin cell).  One packed
             # (N, 36) f32 row-gather + one (N, 5) i32 row-gather move the
             # whole state; per-lane results are permutation-invariant, so
             # images are bit-identical.  Integer lane state (pix, slot, j,
             # s, li) rides the i32 pack — pix is a global pixel id, and a
-            # float32 round-trip would corrupt ids >= 2^24 (8K frames;
-            # round-2 ADVICE).
+            # float32 round-trip would corrupt ids >= 2^24 (8K frames).
             if rt.bin_mode == "leaf":
-                # Geometry-adaptive key (round 5, VERDICT item 8): bounce
+                # Geometry-adaptive key: bounce
                 # lanes key by (direction octant, previous-hit primitive
                 # id) — prim ids follow the builder's DFS order, an
                 # adaptive space-filling curve over the geometry, so
                 # same-key lanes share a leaf-scale surface patch where a
                 # bin_bits-morton cell can span thousands of leaves.
                 # Regenerated camera lanes key by pixel id (scanline
-                # coherence); any prim-id space works (raw leaf-slot or
-                # global tri — both are locality-correlated integers).
+                # coherence).
                 oct_ = (
                     (new_dir[:, 0] < 0).astype(jnp.int32)
                     + 2 * (new_dir[:, 1] < 0).astype(jnp.int32)
@@ -1238,16 +1212,12 @@ def _trace_wave_lanes(
                 key = jnp.where(alive, key, jnp.int32(1) << 30)
                 order = jnp.argsort(key)
             elif rt.bin_mode == "hier":
-                # Hierarchical key (round 5): the leaf-id key alone lost
-                # 8% because packets drew from more distinct subtrees per
-                # 4096-lane packet than a morton cell does.  Keep the
-                # default (octant, morton-cell) as the PRIMARY order —
-                # packets stay subtree-local — and sub-order lanes inside
-                # each cell by previous-hit prim id (DFS leaf locality),
-                # so each 256-lane group of the group kernel covers fewer
-                # leaves.  Two stable argsorts realize the 30+bit
-                # composite inside int32 keys; sort cost is ~0.4% of the
-                # frame (r5 profile).  Pure re-permutation: bit-identical.
+                # Hierarchical key: the default (octant, morton-cell) is
+                # the PRIMARY order, so neighbouring lanes stay
+                # subtree-local, and lanes inside each cell are sub-ordered
+                # by previous-hit prim id (DFS leaf locality).  Two stable
+                # argsorts realize the 30+bit composite inside int32 keys.
+                # Pure re-permutation: bit-identical.
                 key = _bin_key(
                     scene, new_origin, new_dir, alive, rt.bin_bits,
                     rt.bin_dir_bits,

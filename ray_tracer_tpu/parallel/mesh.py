@@ -1,14 +1,14 @@
 """Multi-device rendering: SPMD over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2d: compute and graphics
-even share one queue, ``vk_engine.cpp:115-117``).  The TPU-native scaling
-model shards the renderer's two embarrassingly-parallel axes over the mesh:
+even share one queue, ``vk_engine.cpp:115-117``).  Here the renderer's two
+embarrassingly-parallel axes are sharded over the mesh:
 
 * ``data`` — pixel batches (the DP analogue): each device path-traces its
   pixel shard against a replicated scene (scene arrays are MBs; replication
   is free, SURVEY.md §5).
 * ``sample`` — samples-per-pixel (the SP analogue): devices trace disjoint
-  sample indices for the *same* pixels and reduce with ``psum`` over ICI.
+  sample indices for the *same* pixels and reduce with ``pmean``.
 
 No collective is on the hot path except the final sample-axis ``pmean``.
 RNG is counter-based on (pixel, sample), so sharding does not change the
@@ -28,7 +28,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import RenderConfig
 from ..integrator import wavefront
-from ..utils.jitting import tpu_jit
 from ..scene.types import Camera, CompiledScene
 from ..api import _camera_arrays, scene_camera
 
@@ -48,18 +47,24 @@ def make_mesh(
     return Mesh(dev_array, (DATA_AXIS, SAMPLE_AXIS))
 
 
-def _shard_render(scene, rot, pos, fov, aspect, near, pixel_ids, frame, cfg,
-                  spp_total):
+def _shard_render(scene, rot, pos, fov, aspect, near, frame, cfg, spp_total,
+                  n_local):
     """Per-shard body: trace my pixel shard x my sample-index slice.
 
-    Runs the PRODUCTION integrator (``trace_wave``: path regeneration +
-    coherence binning + multi-phase drain) per shard — round-2 VERDICT
-    flagged that the sharded path previously scanned the unoptimized
-    static per-sample integrator.  Per-lane results are independent of
+    My pixel shard is the ``n_local`` ids after ``data index * n_local``;
+    ids past the image (padding of the last shard) re-trace pixel 0.
+
+    Runs the production integrator (``trace_wave``: path regeneration,
+    plus coherence binning and the multi-phase drain when enabled) per
+    shard.  Per-lane results are independent of
     shard composition (counter-based RNG on pixel/sample), so the image
     is invariant to the mesh shape; non-default estimators fall back to
     the static scan like the single-device path (api._tile_mean).
     """
+    pixel_ids = jax.lax.axis_index(DATA_AXIS) * n_local + jnp.arange(
+        n_local, dtype=jnp.int32
+    )
+    pixel_ids = jnp.where(pixel_ids < cfg.n_pixels, pixel_ids, 0)
     n_sample = jax.lax.axis_size(SAMPLE_AXIS)
     my_sample = jax.lax.axis_index(SAMPLE_AXIS)
     spp_local = spp_total // n_sample
@@ -87,18 +92,30 @@ def _shard_render(scene, rot, pos, fov, aspect, near, pixel_ids, frame, cfg,
     return jax.lax.pmean(color, SAMPLE_AXIS)
 
 
+@functools.lru_cache(maxsize=16)
 def make_sharded_render_fn(mesh: Mesh, cfg: RenderConfig, spp_total: int):
-    """Returns jitted fn(scene, rot, pos, fov, aspect, near, pixel_ids, frame)
-    -> (N,3), with pixel_ids sharded over the data axis and the scene
-    replicated."""
+    """Returns jitted fn(scene, rot, pos, fov, aspect, near, frame) -> (N,3),
+    N the pixel count padded to a multiple of the data axis, sharded over
+    the data axis, with every input replicated.  Cached per (mesh, cfg,
+    spp_total), so each frame after the first reuses the compiled program.
+    """
+    n_local = -(-cfg.n_pixels // mesh.shape[DATA_AXIS])
     fn = jax.shard_map(
-        functools.partial(_shard_render, cfg=cfg, spp_total=spp_total),
+        functools.partial(_shard_render, cfg=cfg, spp_total=spp_total,
+                          n_local=n_local),
         mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(), P(DATA_AXIS), P()),
+        in_specs=(P(), P(), P(), P(), P(), P(), P()),
         out_specs=P(DATA_AXIS),
         check_vma=False,
     )
-    return tpu_jit(fn)
+    return jax.jit(fn)
+
+
+def replicate(scene: CompiledScene, mesh: Mesh) -> CompiledScene:
+    """The scene on every device of the mesh.  Replicate once and pass the
+    result to each :func:`render_frame_sharded` call: a scene that is
+    already replicated is not uploaded again."""
+    return scene.device_put(NamedSharding(mesh, P()))
 
 
 def render_frame_sharded(
@@ -108,20 +125,16 @@ def render_frame_sharded(
     camera: Optional[Camera] = None,
     frame: int = 0,
 ) -> jnp.ndarray:
-    """Full-frame multi-device render -> (H,W,3) on host."""
+    """Full-frame multi-device render -> (H,W,3)."""
     cam = camera or scene_camera(scene)
-    rot, pos, fov, aspect, near = _camera_arrays(cam, cfg)
-    n_data = mesh.shape[DATA_AXIS]
-    n_pix = cfg.n_pixels
-    pad = (-n_pix) % n_data
-    ids = jnp.arange(n_pix + pad, dtype=jnp.int32)
-    ids = jnp.where(ids < n_pix, ids, 0)  # pad lanes re-trace pixel 0
-
-    scene_sharding = NamedSharding(mesh, P())
-    scene_dev = scene.device_put(scene_sharding)
-    ids = jax.device_put(ids, NamedSharding(mesh, P(DATA_AXIS)))
-
+    replicated = NamedSharding(mesh, P())
+    # camera arrays and the frame index go to every device of the mesh,
+    # not to the default device alone
+    rot, pos, fov, aspect, near = jax.device_put(
+        _camera_arrays(cam, cfg), replicated
+    )
+    frame_dev = jax.device_put(jnp.int32(frame), replicated)
     fn = make_sharded_render_fn(mesh, cfg, cfg.samples_per_pixel)
-    out = fn(scene_dev, rot, pos, fov, aspect, near, ids, jnp.int32(frame))
-    out = np.asarray(out)[:n_pix]
+    out = fn(replicate(scene, mesh), rot, pos, fov, aspect, near, frame_dev)
+    out = np.asarray(out)[:cfg.n_pixels]
     return jnp.asarray(out.reshape(cfg.height, cfg.width, 3))

@@ -182,10 +182,7 @@ class SceneBuilder:
         self,
         max_leaf_tris: int = None,
         flatten_instances: bool = True,
-        merge_wide_leaves: bool = None,
         spatial_splits: bool = None,
-        cluster_t_c: int = None,
-        clusters: bool = None,
     ) -> CompiledScene:
         """Flatten to device arrays.
 
@@ -205,15 +202,10 @@ class SceneBuilder:
 
         f32 = np.float32
         i32 = np.int32
-        clusters_forced = clusters is True
-        if clusters is None:
-            # an explicit cluster_t_c is an opt-in (tests/harnesses)
-            clusters = cluster_t_c is not None
-        if cluster_t_c is None:
-            cluster_t_c = 128
         if max_leaf_tris is None:
-            # Fatter leaves on big scenes shrink the node table (VMEM
-            # residency for the packet kernel) at trivial dense-test cost.
+            # Fatter leaves on big scenes halve the node table and the
+            # walk's node steps at the price of more triangle tests per
+            # leaf visit.
             n_total = sum(
                 self._groups[gid].positions.shape[0]
                 for gid, _ in self.instances
@@ -250,8 +242,8 @@ class SceneBuilder:
             tri_obj = np.concatenate(obj_l)
             if spatial_splits is None:
                 # SBVH by default on the flattened production path: spatial
-                # splits shrink node overlap, the quantity driving the
-                # packet kernel's per-packet node union (BENCH_NOTES r2/r3).
+                # splits shrink node overlap, so a ray's walk visits fewer
+                # nodes.
                 spatial_splits = os.environ.get("RT_SBVH", "1") != "0"
             forest, perm = build_forest(
                 positions, [(0, positions.shape[0])], max_leaf_tris,
@@ -405,21 +397,16 @@ class SceneBuilder:
         tri_shade[:, 15] = degen.astype(f32)
 
         # Fat shading row: EVERYTHING a bounce's shading stage needs in ONE
-        # 32-float gather.  XLA per-lane gathers cost ~30-60 ns/lane on TPU
-        # *per gather op* regardless of row width, so folding the material
-        # and instance tables into the row removes ~7 gathers per bounce.
+        # gather per lane; folding the material and instance tables into
+        # the row removes ~7 gathers per bounce.
         # Layout: 0-8 vn | 9-14 uv | 15 degen | 16-18 albedo |
         # 19-21 emission*strength | 22 reflectance | 23 ior |
         # 24 albedo_tex | 25 sampler | 26 material id | 27 instance id |
         # 28 global tri id | 29 metalness_tex | 30 alpha_tex | 31 pad |
         # 32-43 the triangle geometry record (v0, e1, e2, n_geo — the
-        # same values the kernel's leaf records hold), so the shading
-        # stage can RE-DERIVE u/v/facing for the winning record from this
-        # one gather and the packet kernel never has to produce them
-        # (dropping 3 masked VMEM read-modify-writes per leaf record from
-        # the traversal hot loop, and avoiding a second (N,16) gather —
-        # XLA gather cost is per OP, not per row width; the physical row
-        # is lane-padded to 128 either way) | 44-47 pad.
+        # same values tri_packed holds), so the shading stage can RE-DERIVE
+        # u/v/facing for the winning triangle from this one gather and the
+        # walk kernel never has to produce them | 44-47 pad.
         # Ints are held as f32 VALUES (exact below 2^24).
         mat_albedo_arr = mf("albedo", (3,))
         mat_emis_arr = mf("emission_color", (3,)) * mf("emission_strength")[:, None]
@@ -440,271 +427,6 @@ class SceneBuilder:
         shade_tri[:, 31] = mi("bump_tex")[tmat].astype(f32)
         if n_tris:
             shade_tri[:, 32:44] = tri_packed[:, 0:12]
-
-        # BVH8 for the wide packet kernel (single-tree scenes only)
-        if flattened:
-            from ..accel.wide import collapse
-
-            wide_bvh = collapse(forest, forest.roots[0])
-            wide_meta = wide_bvh.meta
-            n_wide = wide_bvh.n_wide
-            # Merged-leaf mode (optional): sibling leaf children of a
-            # wide node are greedily packed (in sorted-slot order, so
-            # groups stay spatially adjacent) into 16-record TWO-row
-            # slots whose box is the union of the parts.  Dense-test ids
-            # stay slot*8+k because a group's records occupy consecutive
-            # rows.  Measured on the hardened proxy it is a WASH (leaf
-            # visits -37% but per-visit cost +40% from the 16-record
-            # unroll + 2-row load; bench 1.50 vs 1.59 Mrays/s), so the
-            # default stays off — kept as a tuning point for future
-            # scenes/kernels.
-            if merge_wide_leaves is None:
-                # Auto: single-row sibling merge on 8-record scenes — packs
-                # partial sibling leaves (fill averages 5.8/8 on the
-                # hardened proxy) into full shared rows, cutting leaf
-                # VISITS at zero per-visit cost (same 8-record unroll, same
-                # one-row load).  The 16-record/two-row variant measured a
-                # wash (r2) and stays opt-in via True.  4-record scenes
-                # keep the cheaper 4-unroll -> no merge (goldens exact).
-                merge_wide_leaves = "8" if max_leaf_tris > 4 else False
-            rec_cap = 16 if merge_wide_leaves is True else 8
-            wide_leaf_recs = rec_cap if merge_wide_leaves else (
-                4 if max_leaf_tris <= 4 else 8
-            )
-            leaf_rows_list = []
-            leaf_map_list = []
-            if merge_wide_leaves:
-                boxes8 = wide_bvh.boxes.reshape(n_wide, 8, 8)
-                slot_meta = wide_meta[:-1].reshape(n_wide, 8, 4)
-                new_boxes = np.full((n_wide, 8, 8), np.nan, f32)
-                new_codes = np.zeros((n_wide, 8), f32)
-                for w in range(n_wide):
-                    children = []  # (box(8,), code f32)
-                    group = []  # (start, cnt, box) accumulated leaves
-                    gcnt = 0
-
-                    def flush():
-                        nonlocal gcnt
-                        if not group:
-                            return
-                        # slot is the FIRST ROW index (the kernel decodes
-                        # (-code-1)//16 and loads rows_per_slot rows at it;
-                        # leaf_map[slot*8+k] stays aligned in both layouts)
-                        slot = len(leaf_rows_list)
-                        block = np.full((rec_cap, 16), np.nan, f32)
-                        ids = np.zeros(rec_cap, i32)
-                        box = group[0][2].copy()
-                        off = 0
-                        for st, c, bx in group:
-                            block[off : off + c] = tri_packed[st : st + c]
-                            ids[off : off + c] = np.arange(
-                                st, st + c, dtype=i32
-                            )
-                            box[0:3] = np.minimum(box[0:3], bx[0:3])
-                            box[3:6] = np.maximum(box[3:6], bx[3:6])
-                            off += c
-                        for r in range(rec_cap // 8):
-                            leaf_rows_list.append(
-                                block[8 * r : 8 * r + 8].reshape(128)
-                            )
-                        leaf_map_list.append(ids)
-                        # payload cnt is informational only (the kernel
-                        # decodes just the slot, //16); cap to keep the
-                        # slot field unambiguous
-                        children.append(
-                            (box, f32(-(slot * 16 + min(off, 15)) - 1))
-                        )
-                        group.clear()
-                        gcnt = 0
-
-                    for c in range(8):
-                        box = boxes8[w, c]
-                        if not np.isfinite(box[0]):
-                            continue  # empty slot
-                        cnt = int(slot_meta[w, c, 1])
-                        if cnt > 0:
-                            if gcnt + cnt > rec_cap:
-                                flush()
-                            group.append(
-                                (int(slot_meta[w, c, 0]), cnt, box)
-                            )
-                            gcnt += cnt
-                        else:
-                            children.append(
-                                (box, f32(slot_meta[w, c, 0]))
-                            )
-                    flush()
-                    # restore ascending order along the node's sort axis
-                    ax = int(wide_bvh.axis[w])
-                    children.sort(
-                        key=lambda t: float(t[0][ax] + t[0][3 + ax])
-                    )
-                    for c, (bx, code) in enumerate(children):
-                        new_boxes[w, c] = bx
-                        new_codes[w, c] = code
-                wide_packed = np.zeros((n_wide, 128), f32)
-                wide_packed[:, :64] = new_boxes.reshape(n_wide, 64)
-                wide_packed[:, 6:64:8] = new_codes
-                wide_packed[:, 7] = wide_bvh.axis.astype(f32)
-            else:
-                # Leaf-slot layout: one 128-float (8-tri) row per leaf so
-                # the kernel reads/DMAs aligned full rows.  Padding slots
-                # carry NaN v0 (every intersection test fails on NaN).
-                for row in range(wide_meta.shape[0] - 1):
-                    cnt = int(wide_meta[row, 1])
-                    if cnt > 0:
-                        start = int(wide_meta[row, 0])
-                        slot = len(leaf_rows_list)
-                        block = np.full((8, 16), np.nan, f32)
-                        block[:cnt] = tri_packed[start : start + cnt]
-                        leaf_rows_list.append(block.reshape(128))
-                        ids = np.zeros(8, i32)
-                        ids[:cnt] = np.arange(start, start + cnt, dtype=i32)
-                        leaf_map_list.append(ids)
-                        wide_meta[row, 3] = slot
-                # Native (W,128) row per wide node (Mosaic pads VMEM minor
-                # dims to 128 lanes, so narrow tables waste 16-32x VMEM):
-                # per child c lanes 8c..8c+5 = min/max, lane 8c+6 =
-                # traversal code held as an f32 VALUE (>=0 wide id; <0
-                # leaf with payload -(slot*16 + cnt) - 1), lane 7 =
-                # child-sort axis.  Empty slots keep NaN boxes (never hit).
-                wide_packed = np.zeros((n_wide, 128), f32)
-                wide_packed[:, :64] = wide_bvh.boxes.reshape(n_wide, 64)
-                slot_meta = wide_meta[:-1].reshape(n_wide, 8, 4)
-                codes = np.where(
-                    slot_meta[:, :, 1] > 0,
-                    -(slot_meta[:, :, 3] * 16 + slot_meta[:, :, 1]) - 1,
-                    slot_meta[:, :, 0],
-                ).astype(f32)
-                wide_packed[:, 6:64:8] = codes
-                wide_packed[:, 7] = wide_bvh.axis.astype(f32)
-            leaf_rows = (
-                np.stack(leaf_rows_list)
-                if leaf_rows_list
-                else np.full((1, 128), np.nan, f32)
-            )
-            leaf_map = (
-                np.concatenate(leaf_map_list)
-                if leaf_map_list
-                else np.zeros(8, i32)
-            )
-            # ---- treelet roots (two-phase packet traversal): deepest
-            # wide nodes whose subtree has <= TREELET_S wide nodes.  BFS
-            # discovery order guarantees children carry higher ids than
-            # their parent, so sizes accumulate in one reverse sweep.
-            TREELET_S = 64
-            codes_f = wide_packed[:, 6:64:8]
-            empty = ~np.isfinite(wide_packed[:, 0:64:8])
-            child_codes = np.where(
-                empty | (codes_f < 0) | ~np.isfinite(codes_f),
-                -1,
-                np.nan_to_num(codes_f, nan=-1.0),
-            ).astype(np.int64)
-            sizes = np.ones(n_wide, np.int64)
-            for w in range(n_wide - 1, -1, -1):
-                for c in child_codes[w]:
-                    if c >= 0:
-                        sizes[w] += sizes[c]
-            wide_troot = np.zeros(n_wide, i32)
-            small = sizes <= TREELET_S
-            # root of a treelet: small, and either the tree root with a
-            # big parent... parent sizes: mark children of non-small nodes
-            for w in range(n_wide):
-                if not small[w]:
-                    for c in child_codes[w]:
-                        if c >= 0 and small[c]:
-                            wide_troot[c] = 1
-            # ---- MXU cluster pipeline tables (accel/cluster.py):
-            # contiguous-range triangle clusters cut from the binary tree,
-            # their transposed MT coefficient pages, and the enumeration
-            # BVH8 over cluster AABBs.  The route MEASURED 6.7x SLOWER
-            # than the packet walk on the v5e (BENCH_NOTES r4), so the
-            # default builds NO tables (they cost ~500 B/tri of HBM and
-            # ~1 s of compile); ``clusters=True`` opts in for the tested
-            # cluster variants and measurement harnesses.
-            forced = clusters_forced
-            if clusters:
-                from ..accel.cluster import (
-                    ClusterCapacityError,
-                    build_cluster_tables,
-                )
-
-                try:
-                    ct = build_cluster_tables(
-                        forest, forest.roots[0], tri_packed, t_c=cluster_t_c
-                    )
-                except ClusterCapacityError:
-                    # A depth-capped SAH/SBVH leaf on pathological geometry
-                    # can hold > t_c refs; the cluster pipeline cannot
-                    # represent it.  When clusters weren't explicitly
-                    # requested, degrade to clusters=False (the packet
-                    # kernel serves the scene) instead of failing the whole
-                    # compile (round-3 advisor).
-                    if forced:
-                        raise
-                    ct = None
-            else:
-                ct = None
-            if ct is not None:
-                clus_mt = ct.clus_mt
-                clus_start = ct.clus_start
-                cwide_packed = ct.cwide_packed
-                n_clusters = int(clus_start.shape[0])
-                super_page = ct.super_page
-                super_cpage = ct.super_cpage
-                super_cstart = ct.super_cstart
-                n_supers = ct.n_supers
-            else:
-                clus_mt = np.zeros((1, 16, 5 * cluster_t_c), f32)
-                clus_start = np.zeros(1, i32)
-                cwide_packed = np.full((1, 128), np.nan, f32)
-                cwide_packed[:, 6:64:8] = 0.0
-                cwide_packed[:, 7] = 0.0
-                n_clusters = 0
-                super_page = np.full((16, 6 * 128), np.nan, f32)
-                super_cpage = np.full((1, 16, 6 * 128), np.nan, f32)
-                super_cstart = np.zeros(1, i32)
-                n_supers = 0
-        else:
-            wide_packed = np.full((1, 128), np.nan, f32)
-            wide_packed[:, 6:64:8] = 0.0
-            wide_packed[:, 7] = 0.0
-            leaf_rows = np.full((1, 128), np.nan, f32)
-            leaf_map = np.zeros(8, i32)
-            wide_leaf_recs = 4 if max_leaf_tris <= 4 else 8
-            wide_troot = np.zeros(1, i32)
-            clus_mt = np.zeros((1, 16, 5 * cluster_t_c), f32)
-            clus_start = np.zeros(1, i32)
-            cwide_packed = np.full((1, 128), np.nan, f32)
-            cwide_packed[:, 6:64:8] = 0.0
-            cwide_packed[:, 7] = 0.0
-            n_clusters = 0
-            super_page = np.full((16, 6 * 128), np.nan, f32)
-            super_cpage = np.full((1, 16, 6 * 128), np.nan, f32)
-            super_cstart = np.zeros(1, i32)
-            n_supers = 0
-
-        # Slot-space mirror of the fat shading rows: indexed directly by the
-        # wide packet kernel's padded leaf-slot ids (slot*8 + k), removing
-        # the per-lane leaf_map indirection gather from the hot path.
-        shade_slot = shade_tri[leaf_map]
-
-        # Per-octant rope streams for the lanewalk kernel (round 5).
-        # ~16 f32/row x (nodes + tri refs) x 8 octants of HBM; built for
-        # flattened scenes unless RT_ROPE_BUILD=0 (the route needs them
-        # at trace time, so they must ride the CompiledScene pytree).
-        rope_rows = 0
-        rope_streams = np.zeros((1, 1, 16 * 128), f32)
-        if flattened and n_tris and os.environ.get(
-            "RT_ROPE_BUILD", "1"
-        ) != "0":
-            from ..kernels.lanewalk import build_rope_streams
-
-            rope_streams, rope_rows = build_rope_streams(
-                forest.node_min, forest.node_max, forest.index,
-                forest.tri_count, forest.hit_link, forest.miss_link,
-                tri_packed, max_leaf=forest.max_leaf_tris,
-            )
 
         return CompiledScene(
             sphere_pos=sph_pos,
@@ -729,7 +451,6 @@ class SceneBuilder:
             tri_uv=uvs.astype(f32),
             tri_shade=tri_shade,
             shade_tri=shade_tri,
-            shade_slot=shade_slot,
             obj_transform=obj_transform,
             obj_inv_transform=obj_inv,
             obj_bvh_root=obj_root,
@@ -746,17 +467,6 @@ class SceneBuilder:
             bvh_packed=bvh_packed,
             links_packed=links_packed,
             tri_packed=tri_packed,
-            wide_packed=wide_packed,
-            leaf_rows=leaf_rows,
-            leaf_map=leaf_map,
-            wide_troot=wide_troot,
-            clus_mt=clus_mt,
-            clus_start=clus_start,
-            cwide_packed=cwide_packed,
-            super_page=super_page,
-            super_cpage=super_cpage,
-            super_cstart=super_cstart,
-            rope_streams=rope_streams,
             light_corner=li_corner,
             light_edge_u=li_u,
             light_edge_v=li_v,
@@ -780,16 +490,9 @@ class SceneBuilder:
                 "n_bump_maps": int(sum(m.bump_tex >= 0 for m in mats)),
                 "n_tris": int(positions.shape[0]) if self._groups else 0,
                 "max_leaf_tris": forest.max_leaf_tris,
-                "wide_leaf_recs": wide_leaf_recs,
                 "flattened": flattened,
-                "rope_rows": int(rope_rows),
-                "treelet_size": 64,
-                "n_treelets": (
-                    int(wide_troot.sum()) if flattened else 0
-                ),
-                "n_clusters": n_clusters,
-                "cluster_t_c": cluster_t_c,
-                "n_supers": n_supers,
+                # root of the single world-space BVH (flattened scenes)
+                "bvh_root": int(forest.roots[0]),
                 "bvh_max_depth": forest.max_depth_seen,
                 "camera": (
                     tuple(self.camera.position),

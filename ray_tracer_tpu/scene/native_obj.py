@@ -28,7 +28,9 @@ _tried = False
 
 
 def _cache_dir() -> str:
-    d = os.environ.get("RT_CACHE", os.path.expanduser("~/.cache/ray_tracer_tpu"))
+    from ..utils.cache import NATIVE_DIR
+
+    d = os.environ.get("RT_CACHE", NATIVE_DIR)
     os.makedirs(d, exist_ok=True)
     return d
 

@@ -16,7 +16,10 @@ import os
 from .builder import SceneBuilder
 from .types import Camera, Environment, Material
 
-DEFAULT_ASSETS = os.environ.get("RT_ASSETS", "/root/reference/assets")
+# The Cornell meshes ship with the package; RT_ASSETS points the presets at
+# a directory that also holds the larger gallery meshes and textures.
+PACKAGE_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+DEFAULT_ASSETS = os.environ.get("RT_ASSETS", PACKAGE_ASSETS)
 
 WHITE, RED, GREEN, LIGHT, MIRROR, DIELECTRIC = range(6)
 
@@ -659,7 +662,7 @@ def sponza_proxy(n_tris_target: int = 260_000, seed: int = 7) -> SceneBuilder:
     def make_beam(n_seg=32):
         """Lintel over a colonnade row, tessellated along its length —
         real Sponza has no courtyard-spanning triangles, and monster
-        AABBs would put the beam in every packet's leaf visits."""
+        AABBs would put the beam in every ray's leaf visits."""
         verts, faces = [], []
         ys = (0.0, -0.22)
         zs = (-0.14, 0.14)

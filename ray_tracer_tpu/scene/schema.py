@@ -137,8 +137,8 @@ def builder_to_dict(b: SceneBuilder) -> Dict[str, Any]:
             }
         )
     if b._texture_paths:
-        # add_texture state (round-2 ADVICE: omitting it silently
-        # round-tripped textured scenes to untextured ones)
+        # add_texture state (omitting it would silently round-trip
+        # textured scenes to untextured ones)
         doc["textures"] = list(b._texture_paths)
     for m in b.materials:
         md = {

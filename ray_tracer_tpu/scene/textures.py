@@ -1,6 +1,6 @@
 """Texture loading: image files -> one padded float32 stack in HBM.
 
-TPU-native replacement for the reference's stb_image -> VkImage path
+Replacement for the reference's stb_image -> VkImage path
 (``src/vk_textures.cpp:8-293``).  All textures are decoded to linear-light
 RGB float32 (the reference binds views with ``VK_FORMAT_R8G8B8A8_SRGB``,
 ``vk_engine.cpp:1158``, so its shader reads are linearized by hardware) and

@@ -3,8 +3,8 @@
 Host-side description objects mirror the reference's scene model
 (``src/vk_engine.h:49-132``): spheres, materials, mesh instances with TRS
 transforms, and a per-``usemtl``-group BVH forest.  ``CompiledScene`` is the
-flat SoA pytree uploaded to the device — the TPU-native replacement for the
-reference's nine storage-buffer bindings (``shaders/raytrace.comp:120-148``).
+flat SoA pytree uploaded to the device — the replacement for the reference's
+nine storage-buffer bindings (``shaders/raytrace.comp:120-148``).
 """
 
 from __future__ import annotations
@@ -159,14 +159,13 @@ class CompiledScene:
     # uv0|uv1|uv2 (6) | degenerate-uv flag (1).  The degenerate test
     # (raytrace.comp:254-256) is per-triangle, so it is precomputed here.
     tri_shade: Any  # (T,16) f32
-    # Fat shading rows: ONE 32-float gather per bounce replaces the
-    # tri_shade + material-table + instance-table gathers (XLA per-lane
-    # gathers at ~30-60ns/lane dominate the per-bounce fixed cost on TPU).
+    # Fat shading rows: ONE gather per bounce replaces the tri_shade +
+    # material-table + instance-table gathers.
     # Layout: 0-8 vn | 9-14 uv | 15 degen | 16-18 albedo |
     # 19-21 emission*strength | 22 reflectance | 23 ior | 24 albedo_tex |
-    # 25 sampler | 26 material id | 27 instance id | 28 global tri id.
-    shade_tri: Any  # (T,48) f32, indexed by global tri id (gather walk)
-    shade_slot: Any  # (L*8,48) f32, indexed by padded leaf slot (packet)
+    # 25 sampler | 26 material id | 27 instance id | 28 global tri id |
+    # 29 metalness_tex | 30 alpha_tex | 31 bump_tex | 32-43 v0|e1|e2|n.
+    shade_tri: Any  # (T,48) f32, indexed by global tri id
 
     # Instances.
     obj_transform: Any  # (O,4,4) f32
@@ -189,37 +188,6 @@ class CompiledScene:
     bvh_packed: Any  # (B,8) f32: min3 | max3 | index (bitcast) | count (bitcast)
     links_packed: Any  # (8*B,2) i32: hit | miss, octant-major
     tri_packed: Any  # (T,16) f32: v0|e1|e2|n | front_only | obj (bitcast) | pad2
-    # BVH8 collapse for the wide packet kernel (flattened scenes), packed
-    # as one native 128-lane f32 row per wide node: per child c, lanes
-    # 8c..8c+5 = min3|max3, lane 8c+6 = traversal code as an f32 value
-    # (>=0 target wide id; <0 leaf with payload -(slot*16 + cnt) - 1);
-    # lane 7 = axis.  f32-exact for < ~1M leaves (16M-tri scenes).
-    wide_packed: Any  # (W,128) f32
-    # Leaf-slot triangle layout for the HBM-DMA variant: each leaf owns one
-    # 128-float row (8 padded tri records); NaN v0 marks padding.
-    leaf_rows: Any  # (L,128) f32
-    leaf_map: Any  # (L*8,) i32: padded slot -> global triangle id
-    # Treelet roots for two-phase packet traversal: 1 where the wide node
-    # heads a subtree of <= meta['treelet_size'] wide nodes whose parent's
-    # subtree is larger (0 on top-region nodes).
-    wide_troot: Any  # (W,) i32
-    # MXU cluster pipeline (accel/cluster.py): transposed Moller-Trumbore
-    # coefficient pages per <=t_c-triangle cluster, the clusters' global
-    # triangle range starts, and the enumeration BVH8 over cluster AABBs
-    # (leaf codes carry cluster ids).  meta: n_clusters, cluster_t_c.
-    clus_mt: Any  # (C, 16, 5*t_c) f32
-    clus_start: Any  # (C,) i32
-    cwide_packed: Any  # (Wc, 128) f32
-    # Box-matmul enumeration (two brute-force slab-matmul levels; see
-    # accel/cluster.py build_super_tables).  meta: n_supers.
-    super_page: Any  # (16, 6*128) f32
-    super_cpage: Any  # (S, 16, 6*128) f32
-    super_cstart: Any  # (S,) i32 first cluster id per super
-    # Per-octant rope-walk row streams for the lanewalk kernel
-    # (kernels/lanewalk.py): the narrow tree flattened into each octant's
-    # preorder (interior -> BOX row, leaf -> BOX row + cnt TRI rows),
-    # paged 128 rows / 16 fields, field-major.  meta: rope_rows.
-    rope_streams: Any  # (8, n_pages, 16*128) f32
 
     # NEE lights.
     light_corner: Any  # (L,3) f32

@@ -3,7 +3,7 @@
 The reference fails loudly at the API boundary (the ``VK_CHECK`` abort
 macro, ``src/vk_engine.cpp:20-27``; hard ``exit(0)`` on a missing texture,
 ``src/vk_textures.cpp:114``).  This is the equivalent discipline for the
-declarative scene layer (round-2 VERDICT item 9): a malformed scene fails
+declarative scene layer: a malformed scene fails
 at ``SceneBuilder.compile()`` with a message naming the offending entity,
 instead of surfacing as a raw numpy IndexError deep in the flattener.
 """

@@ -1,4 +1,4 @@
-"""Live progressive-render viewer: the ImGui control panel, TPU-style.
+"""Live progressive-render viewer: the ImGui control panel, over HTTP.
 
 The reference drives an SDL window with an ImGui panel (render stats, tracer
 params, camera, environment — ``src/vk_engine.cpp:1492-1621``) and WASD/mouse
@@ -164,11 +164,11 @@ class ViewerState:
         # Serializes whole edit transactions (mutate builder -> compile ->
         # swap scene): ThreadingHTTPServer handles requests concurrently,
         # and two interleaved POST /edit mutations could compile a
-        # half-applied scene (round-2 ADVICE).
+        # half-applied scene.
         self.edit_lock = threading.Lock()
         # Accepting the BUILDER (not just the compiled scene) is what makes
         # live editing possible: edits mutate builder descriptors and
-        # recompile, the TPU-shaped analogue of the reference's ImGui
+        # recompile, the analogue of the reference's ImGui
         # editors + update_buffer re-upload (vk_engine.cpp:1541-1603).
         self.builder = scene if isinstance(scene, SceneBuilder) else None
         compiled = (
@@ -181,16 +181,16 @@ class ViewerState:
         # scenes where a full-res frame takes seconds.  The reference gets
         # the same effect by pausing accumulation and re-rendering 1-spp
         # full-res frames during movement (vk_engine.cpp:1867-1891) — its
-        # GPU sustains that at full res; the preview is the TPU-latency
-        # answer.  The browser upscales the small PNG (pixelated).
+        # renderer sustains that at full res; the preview keeps the
+        # wavefront's per-frame cost small instead.  The browser upscales the small PNG (pixelated).
         self.preview = None
         if preview_scale > 1:
             # Preview also caps bounce depth: the drag preview is a
             # navigation aid, and the wavefront's per-round cost floor
-            # dominates small frames — bounce 2 lifted the 480x270
-            # sponza_proxy preview from 3.2 to >5 fps on the v5e
-            # (tools/measure_viewer_fps.py, BENCH_NOTES r5), the
-            # reference's interactive bar (vk_engine.cpp:1497-1501).
+            # dominates small frames, so fewer bounces mean more preview
+            # ticks per second (tools/measure_viewer_fps.py measures them;
+            # the reference's interactive bar is its fps display,
+            # vk_engine.cpp:1497-1501).
             pcfg = cfg.replace(
                 width=max(16, cfg.width // preview_scale),
                 height=max(16, cfg.height // preview_scale),

@@ -101,8 +101,8 @@ def test_single_triangle_group():
 
 
 def test_sponza_proxy_hardness():
-    """The scored BASELINE-config-5 workload must stay Sponza-hard
-    (VERDICT r1 weak #4): triangle count anchored to the real Crytek
+    """The scored BASELINE-config-5 workload must stay Sponza-hard:
+    triangle count anchored to the real Crytek
     asset (262,267), and a tree at least as SAH-expensive as the densest
     in-repo real mesh (klein_bottle, SAH~53 by tools/scene_hardness.py's
     metric) — guarding against the scene degenerating into cheap

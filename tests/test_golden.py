@@ -5,11 +5,11 @@ The reference's de-facto acceptance artifacts are its renders/ PNGs
 deterministic CPU renders checked against committed float16 goldens.
 Guards the integrator's radiometric semantics against drift.
 
-Each golden is checked through BOTH traversal backends: the XLA gather
-walk (Routing(packet="off"), the oracle) and the production Pallas packet
-kernel in interpret mode (the same kernel code the TPU runs), so a
-TPU-vs-CPU image divergence in the kernel path fails the golden, not
-just the traversal-level equivalence tests in test_packet.py.
+Each golden is checked through both traversal routes: the XLA gather walk
+(``Routing(route="walk")``, the oracle) and the Pallas walk kernel in the
+interpreter (the kernel body the GPU compiles), so a kernel-vs-walk image
+divergence fails the golden, not just the traversal-level equivalence
+tests in test_walk_kernel.py.
 """
 
 import os
@@ -28,7 +28,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 def _bunny_scene():
     # mesh-BVH golden (908-face bunny decimation in the cornell box):
     # a traversal regression fails a render-level golden, not just the
-    # traversal unit tests (round-2 VERDICT item 8)
+    # traversal unit tests
     return presets.mesh_scene(
         "bunny.obj", material=presets.WHITE, scale=0.8,
         position=(0.0, 0.769, 0.0), rotation_deg=(0.0, 180.0, 0.0),
@@ -41,7 +41,7 @@ def _textured_scene():
     return presets.dread_demo()
 
 
-@pytest.mark.parametrize("packet_mode", ["off", "packet", "group"])
+@pytest.mark.parametrize("route", ["walk", "interpret"])
 @pytest.mark.parametrize(
     "name,builder",
     [
@@ -52,17 +52,14 @@ def _textured_scene():
         ("dread_textured", _textured_scene),
     ],
 )
-def test_golden(name, builder, packet_mode):
+def test_golden(name, builder, route):
     path = os.path.join(GOLDEN_DIR, f"{name}_40x40_8spp.npy")
-    if not os.path.exists(path) and name in ("bunny_mesh", "dread_textured"):
-        pytest.skip("reference assets unavailable when golden was made")
+    mesh = {"bunny_mesh": "bunny.obj", "dread_textured": "dread.obj"}.get(name)
+    if mesh and not os.path.exists(os.path.join(presets.DEFAULT_ASSETS, mesh)):
+        pytest.skip(f"{mesh} is not shipped; set RT_ASSETS to a directory "
+                    "that holds it")
     golden = np.load(path).astype(np.float32)
-    rt = {
-        "off": Routing(packet="off"),
-        "packet": Routing(packet="interpret", groups=0),
-        "group": Routing(packet="interpret", groups=4, groups_packet=512),
-    }[packet_mode]
-    cfg = CFG.replace(routing=rt)
+    cfg = CFG.replace(routing=Routing(route=route))
     img = np.asarray(render(builder().compile().device_put(), cfg))
     # float16 quantization of the golden + cross-backend FMA noise
     np.testing.assert_allclose(img, golden, atol=2e-3)

@@ -16,13 +16,8 @@ CFG = RenderConfig(width=32, height=32, samples_per_pixel=2, bounce_limit=3)
 
 
 @pytest.fixture(scope="module")
-def cornell(request):
-    import os
-
-    assets = os.environ.get("RT_ASSETS", "/root/reference/assets")
-    if not os.path.isdir(assets):
-        pytest.skip("assets missing")
-    return presets.default_scene(assets).compile().device_put()
+def cornell():
+    return presets.default_scene().compile().device_put()
 
 
 def test_render_finite_nonzero(cornell):
@@ -195,13 +190,15 @@ def test_heatmap_full_path(cornell):
     np.testing.assert_allclose(col6, plain, rtol=1e-6, atol=1e-6)
 
 
-def test_textured_render(tmp_path, assets_dir):
+def test_textured_render(tmp_path):
     """Albedo texture sampling (quirk Q1 capability): a textured quad must
     show spatial color variation; with textures disabled it must not."""
-    import os
-    import shutil
+    from PIL import Image
 
-    shutil.copy(os.path.join(assets_dir, "dread_alb.png"), tmp_path / "t.png")
+    # 32x32 texture: a smooth gradient under a coarse checker
+    yy, xx = np.mgrid[0:32, 0:32]
+    tex = np.stack([xx * 8, yy * 8, ((xx // 8 + yy // 8) % 2) * 255], -1)
+    Image.fromarray(tex.astype(np.uint8)).save(tmp_path / "t.png")
     (tmp_path / "m.mtl").write_text(
         "newmtl tex\nKd 1.0 1.0 1.0\nmap_Kd t.png\n"
     )
@@ -236,11 +233,9 @@ def test_textured_render(tmp_path, assets_dir):
 def test_forest_mode_render_matches_flattened(cornell):
     """flatten_instances=False (reference per-object BVH forest semantics)
     must render the same image as the flattened default."""
-    import os
-
-    forest_scene = presets.default_scene(
-        os.environ.get("RT_ASSETS", "/root/reference/assets")
-    ).compile(flatten_instances=False).device_put()
+    forest_scene = presets.default_scene().compile(
+        flatten_instances=False
+    ).device_put()
     a = np.asarray(render(cornell, CFG))
     b = np.asarray(render(forest_scene, CFG))
     np.testing.assert_allclose(a, b, atol=2e-4)
@@ -278,12 +273,12 @@ def test_binned_wavefront_bit_identical(cornell):
 
 
 def test_bin_mode_leaf_bit_identical(cornell):
-    """The leaf-id coherence key (Routing.bin_mode='leaf', round 5) is a
-    pure re-permutation: images must match the morton key bit-exactly."""
+    """The leaf-id coherence key (Routing.bin_mode='leaf') is a pure
+    re-permutation: images must match the morton key bit-exactly."""
     from ray_tracer_tpu import render
     from ray_tracer_tpu.config import Routing
 
-    base = Routing(packet="interpret", groups=4, groups_packet=512)
+    base = Routing(route="interpret")
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=2,
                        bounce_limit=3, bin_rays=True, routing=base)
     a = np.asarray(render(cornell, cfg))
@@ -294,14 +289,13 @@ def test_bin_mode_leaf_bit_identical(cornell):
 
 
 def test_bin_mode_hier_bit_identical(cornell):
-    """The hierarchical coherence key (Routing.bin_mode='hier', round 5:
-    morton primary + prev-hit prim-id sub-order via two stable argsorts)
-    is a pure re-permutation: images must match the morton key
-    bit-exactly."""
+    """The hierarchical coherence key (Routing.bin_mode='hier': morton
+    primary + prev-hit prim-id sub-order via two stable argsorts) is a
+    pure re-permutation: images must match the morton key bit-exactly."""
     from ray_tracer_tpu import render
     from ray_tracer_tpu.config import Routing
 
-    base = Routing(packet="interpret", groups=4, groups_packet=512)
+    base = Routing(route="interpret")
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=2,
                        bounce_limit=3, bin_rays=True, routing=base)
     a = np.asarray(render(cornell, cfg))
@@ -342,8 +336,8 @@ def test_lane_pool_spp_split_matches(cornell):
     """The spp-lane population mode samples the identical estimator.
 
     lane_pool expansion splits each pixel's samples across g lanes
-    (wavefront._lane_groups) purely to enlarge the coherence-binning
-    population — measured +12-16% on hardware (BENCH_NOTES r4).  The RNG
+    (wavefront._lane_groups) purely to enlarge the wavefront population.
+    The RNG
     streams are identical (keyed on (pixel, sample), both present either
     way), so the sampled paths are the same; the tolerance is the same
     float-scheduling allowance as test_tiling_invariance — the expanded
@@ -383,7 +377,7 @@ def test_lane_pool_spp_split_matches(cornell):
 
 
 def test_ray_accounting_sem_vs_traced(cornell):
-    """n_rays = [semantic, traced] (round-4 advisor): the semantic count
+    """n_rays = [semantic, traced]: the semantic count
     matches the reference's per-ray traversal events (every bounce + every
     diffuse NEE ray, raytrace.comp:443,496); the traced count excludes
     facing-away NEE lanes resolved analytically.  Both integrators must

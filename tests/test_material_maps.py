@@ -21,7 +21,7 @@ from ray_tracer_tpu.scene.types import Camera, Environment, Material
 
 CFG = RenderConfig(
     width=24, height=24, samples_per_pixel=4, bounce_limit=3,
-    routing=Routing(packet="off"),
+    routing=Routing(route="walk"),
 )
 
 
@@ -112,7 +112,7 @@ def test_metalness_map_drives_reflectance(tdir):
 
 def test_maps_roundtrip_via_schema(tdir):
     """save_scene/load_scene keeps texture paths and *_tex indices
-    (round-2 ADVICE: textured scenes silently round-tripped untextured)."""
+    (textured scenes must not silently round-trip untextured)."""
     from ray_tracer_tpu.scene import schema
 
     quad = os.path.join(tdir, "quad.obj")

@@ -3,7 +3,7 @@
 The reference parses map_bump into a material slot and carries
 tangent/binormal fields (``src/vk_engine.cpp:1127-1141``,
 ``vk_engine.h:64-67``) but ``calculate_binormal`` never writes its
-outputs (``:1040-1058``) — bump mapping is dead there.  The TPU build
+outputs (``:1040-1058``) — bump mapping is dead there.  This renderer
 implements it behind ``RenderConfig.enable_normal_maps`` (default False
 = snapshot-exact): tangent frame solved from triangle edges + UV deltas
 (exactly the system calculate_binormal intended), 3-tap per-texel
@@ -23,7 +23,7 @@ from ray_tracer_tpu.scene.types import Camera, Environment, Material
 
 CFG = RenderConfig(
     width=24, height=24, samples_per_pixel=8, bounce_limit=2,
-    routing=Routing(packet="off"),
+    routing=Routing(route="walk"),
 )
 
 
@@ -132,12 +132,12 @@ def test_bump_gradient_tilts_away_from_uphill(tdir):
 
 
 def test_bump_composes_with_kernel_route(tdir):
-    """The bump path reads only shading-row fields, so the packet/group
+    """The bump path reads only shading-row fields, so the walk kernel
     route must match the gather-walk oracle exactly."""
     sc = _scene(tdir, lambda j: j * 16)
     on = CFG.replace(enable_normal_maps=True, bump_scale=4.0)
     a = np.asarray(render(sc, on))
     b = np.asarray(render(sc, on.replace(
-        routing=Routing(packet="interpret", groups=4, groups_packet=512)
+        routing=Routing(route="interpret")
     )))
     np.testing.assert_allclose(a, b, atol=1e-6)

@@ -1,4 +1,4 @@
-"""Scene compiler tests: OBJ/MTL parsing against the reference assets
+"""Scene compiler tests: OBJ/MTL parsing against the shipped Cornell meshes
 (SURVEY.md §4: parser tests vs assets/cube.obj, test_plane.obj + its .mtl)."""
 
 import os
@@ -30,8 +30,19 @@ def test_parse_plane(assets_dir):
     assert np.allclose(g.positions[:, :, 1], 0.0)  # y = 0 plane
 
 
-def test_parse_test_plane_mtl(assets_dir):
-    mesh = objio.parse_obj(os.path.join(assets_dir, "test_plane.obj"))
+def test_parse_test_plane_mtl(tmp_path):
+    # a textured plane with its own MTL library, like the reference's
+    # assets/test_plane.obj
+    (tmp_path / "test_plane.mtl").write_text(
+        "newmtl plane\nKa 1.0 1.0 1.0\nKd 0.8 0.5 0.2\nmap_Kd grid.png\n"
+    )
+    (tmp_path / "test_plane.obj").write_text(
+        "mtllib test_plane.mtl\n"
+        "v -1 0 -1\nv 1 0 -1\nv 1 0 1\nv -1 0 1\n"
+        "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 -1 0\n"
+        "usemtl plane\nf 1/1/1 2/2/1 3/3/1 4/4/1\n"
+    )
+    mesh = objio.parse_obj(str(tmp_path / "test_plane.obj"))
     assert mesh.mtl_path and os.path.exists(mesh.mtl_path)
     lib = mtlio.parse_mtl(mesh.mtl_path)
     assert len(lib.materials) >= 1
@@ -52,7 +63,7 @@ def test_usemtl_grouping(tmp_path):
 
 def test_native_obj_twin_all_assets(assets_dir):
     """The native C++ scanner (scene/native_obj.py) must be BIT-identical
-    to the Python parser on every reference asset: same groups, material
+    to the Python parser on every shipped asset: same groups, material
     names, smooth flags, mtllib resolution, and float arrays (the scanner
     parses via strtod->f32 to match Python's float()->np.float32 double
     rounding)."""

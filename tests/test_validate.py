@@ -1,4 +1,4 @@
-"""Compile-time scene validation (VERDICT r2 item 9: VK_CHECK discipline,
+"""Compile-time scene validation (the reference's VK_CHECK discipline,
 src/vk_engine.cpp:20-27)."""
 
 import numpy as np

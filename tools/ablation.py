@@ -3,13 +3,13 @@
 
 The reference documents its estimator work with a folder of Cornell
 renders comparing uniform-hemisphere vs cosine-weighted vs 0/1-NEE
-sampling (``/root/reference/renders/importance_sampling/``).  This renders
+sampling (its ``renders/importance_sampling/``).  This renders
 the same comparison with the framework's RenderConfig.estimator modes at
 equal sample budget, labels each pane with its measured MSE vs a
 high-spp MIS reference, and writes one side-by-side PNG to
 renders/importance_sampling/comparison.png.
 
-Run on TPU.  RT_ABLATION_SPP (default 16) is the per-estimator budget;
+Run on the GPU.  RT_ABLATION_SPP (default 16) is the per-estimator budget;
 the truth render uses 64x that.
 """
 import os
@@ -39,7 +39,7 @@ def main():
     base = RenderConfig(width=W, height=H, bounce_limit=8)
 
     def render_est(est, n):
-        # chunked <=64-spp dispatches (TPU long-execution watchdog)
+        # chunked <=64-spp dispatches (bounded program run time)
         acc = np.zeros((H, W, 3), np.float32)
         done = 0
         while done < n:

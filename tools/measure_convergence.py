@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Convergence + time-to-quality across scenes (round-4 VERDICT item 4).
+"""Convergence + time-to-quality across scenes.
 
 The north-star convergence metric ("seconds to 1024 spp, Cornell 512^2",
-BASELINE.md) was previously tracked on Cornell only — the scene where
-coherence binning is worth 5x, i.e. the flattering case.  This measures,
+BASELINE.md) covers Cornell only, the cheapest scene.  This measures,
 for Cornell AND the mesh-BVH scenes (bunny, klein, sponza_proxy):
 
   * steady-state seconds to 1024 spp at 512^2 (compile excluded),

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""End-to-end interactive preview rate on the TPU (VERDICT r5 item 7).
+"""End-to-end interactive preview rate of the viewer.
 
 The reference is an interactive app whose UX bar is the ImGui fps
 display (vk_engine.cpp:1497-1501); during camera movement it re-renders
-1-spp full-res frames (vk_engine.cpp:1867-1891).  The TPU viewer's
+1-spp full-res frames (vk_engine.cpp:1867-1891).  This viewer's
 answer is the low-res instant preview (viewer.py): after any camera
 move the next tick renders width/preview_scale x height/preview_scale
 at 1 spp and publishes a PNG.
@@ -11,7 +11,7 @@ at 1 spp and publishes a PNG.
 This harness times the FULL tick path (render step + sRGB encode + PNG)
 through ViewerState._tick — exactly what a dragging camera experiences —
 for the camera-drag preview, plus the steady-state full-res progressive
-frame, on the official bench scene (sponza_proxy, group route) and the
+frame, on the bench scene (sponza_proxy, default route) and the
 default cornell scene.
 
 Usage: python tools/measure_viewer_fps.py [n_tris] [scales...]

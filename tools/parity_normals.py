@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Root-cause breakdown of the obj_normals parity residual (VERDICT r4
-item 6: the one pinned-camera gallery case, fov 50 / rot (4,-89,0) /
-pos (-3,-0.5,-1) / bounce 1, still measured MSE 0.079).
+"""Root-cause breakdown of the obj_normals parity residual (the one
+pinned-camera gallery case, fov 50 / rot (4,-89,0) / pos (-3,-0.5,-1) /
+bounce 1).
 
 Stage 1 (``render``): render the reconstruction at the pinned pose and
 cache it (renders/parity/obj_normals_ours.npy) — ~20 min on CPU.
@@ -30,12 +30,15 @@ import numpy as np  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "renders", "parity")
 CACHE = os.path.join(OUT, "obj_normals_ours.npy")
-REF_PNG = "/root/reference/renders/obj_normals.png"
+REF_PNG = os.path.join(
+    os.environ.get("RT_REFERENCE_RENDERS", "reference_renders"),
+    "obj_normals.png",
+)
 W, H = 864, 558  # half the reference window (vk_engine.h:338)
 
 
 def render(spp: int) -> None:
-    if not os.environ.get("RT_TPU"):
+    if os.environ.get("RT_PARITY_CPU"):
         import jax
 
         jax.config.update("jax_platforms", "cpu")

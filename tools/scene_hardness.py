@@ -1,23 +1,17 @@
 #!/usr/bin/env python
-"""Is sponza_proxy actually Sponza-hard?  (VERDICT r1 item 4.)
+"""Is sponza_proxy actually Sponza-hard?
 
 The reference ships ``assets/sponza2/sponza.mtl`` + the full Crytek
 texture set but NO sponza .obj (the load is commented out,
-``vk_engine.cpp:729``), and this sandbox has no network egress (DNS
-resolution fails for casual-effects.com / graphics.stanford.edu — fetch
-attempted and documented in PARITY.md), so BASELINE config 5 runs on the
+``vk_engine.cpp:729``; PARITY.md), so BASELINE config 5 runs on the
 procedural ``presets.sponza_proxy``.  This tool substantiates the proxy's
 hardness with measurable BVH-quality numbers:
 
-* structural: tri count, node count, depth distribution, SAH cost,
-  BVH8 wide-node fill — the quantities the reference prints per build
-  (``vk_engine.cpp:1189-1193``);
+* structural: tri count, node count, depth distribution, SAH cost — the
+  quantities the reference prints per build (``vk_engine.cpp:1189-1193``);
 * behavioral (--heatmap, needs a fast backend): mean box/tri tests per
   primary ray and per full path from the debug counters — the
-  reference's stats[2] heatmap numbers (``raytrace.comp:583-591``);
-* intent: the shipped sponza.mtl's material/texture inventory, to show
-  the complexity the real asset would add (shading tables, not
-  traversal).
+  reference's stats[2] heatmap numbers (``raytrace.comp:583-591``).
 
 Comparison anchors for the real Crytek Sponza (public knowledge, no
 fetch): 262,267 triangles, ~25 materials, SAH BVH depth ~35-45 at 2-tri
@@ -66,10 +60,6 @@ def bvh_stats(scene):
         (area[interior].sum() + (area[leaf] * cnt[leaf]).sum()) / root_area
     )
     leaf_depths = depth[leaf]
-    wide = np.asarray(scene.wide_packed)
-    # wide-node child occupancy: lanes 8c..8c+5 are the child box; empty
-    # slots carry NaN bounds (accel/wide.py layout note)
-    used = np.isfinite(wide[:, 0:64:8]) if wide.shape[0] > 1 else np.zeros((0, 8), bool)
     return {
         "n_tris": int(scene.meta["n_tris"]),
         "n_nodes": int(reach.sum()),
@@ -79,8 +69,6 @@ def bvh_stats(scene):
         "p95_leaf_depth": int(np.percentile(leaf_depths, 95)),
         "mean_leaf_tris": round(float(cnt[leaf].mean()), 2),
         "sah_cost": round(sah, 1),
-        "wide_nodes": int(wide.shape[0]),
-        "wide_fill": round(float(used.mean() * 8), 2) if len(used) else 0.0,
     }
 
 
@@ -103,21 +91,6 @@ def heatmap_stats(scene, width=320, height=200):
     }
 
 
-def sponza_mtl_inventory(path="/root/reference/assets/sponza.mtl"):
-    mats, texs = 0, set()
-    if not os.path.exists(path):
-        return {}
-    for line in open(path, errors="replace"):
-        t = line.split()
-        if not t:
-            continue
-        if t[0] == "newmtl":
-            mats += 1
-        elif t[0].startswith("map_"):
-            texs.add(t[-1])
-    return {"sponza_mtl_materials": mats, "sponza_mtl_textures": len(texs)}
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--heatmap", action="store_true",
@@ -128,10 +101,11 @@ def main():
 
     scenes = {
         "cornell": presets.default_scene(),
-        "klein_bottle": presets.mesh_scene("klein_bottle.obj"),
         "sponza_proxy": presets.sponza_proxy(),
     }
-    out = {"sponza_mtl": sponza_mtl_inventory()}
+    if os.path.exists(os.path.join(presets.DEFAULT_ASSETS, "klein_bottle.obj")):
+        scenes["klein_bottle"] = presets.mesh_scene("klein_bottle.obj")
+    out = {}
     for name, b in scenes.items():
         scene = b.compile()
         row = bvh_stats(scene)
